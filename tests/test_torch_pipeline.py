@@ -1,0 +1,206 @@
+"""The whole vcs_h264_tpu_torch slice against the JAX package on the CPU:
+Encoder.encode_frames -> .npz -> Decoder.decode with
+CodecConfig.production(), each package's stream decoded by the other, and
+the port's isolation from JAX and from the GPU when run on the CPU."""
+
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+torch.set_num_threads(2)
+
+from vcs_h264_tpu.config import CodecConfig as JaxConfig  # noqa: E402
+from vcs_h264_tpu.models.decoder import Decoder as JaxDecoder  # noqa: E402
+from vcs_h264_tpu.models.encoder import Encoder as JaxEncoder  # noqa: E402
+from vcs_h264_tpu.models.gop import EncodedGOP as JaxGOP  # noqa: E402
+from vcs_h264_tpu.models.gop import EncodedVideo as JaxVideo  # noqa: E402
+
+from vcs_h264_tpu_torch import CodecConfig  # noqa: E402
+from vcs_h264_tpu_torch.interop import from_jax_video, to_numpy_video  # noqa: E402
+from vcs_h264_tpu_torch.models import Decoder, EncodedVideo, Encoder  # noqa: E402
+from vcs_h264_tpu_torch.ops import inter_cuda, motion_cuda  # noqa: E402
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _clip(rng, n, h, w):
+    """Smooth texture panned 2 px/frame with a moving square and +-2
+    noise: BGR uint8 [h, w, 3] frames, so the search finds vectors."""
+    m = 2 * n + 8
+    coarse = rng.uniform(0, 255, (1, 3, (h + 2 * m) // 8 + 2,
+                                  (w + 2 * m) // 8 + 2))
+    tex = torch.nn.functional.interpolate(
+        torch.from_numpy(coarse), size=(h + 2 * m, w + 2 * m),
+        mode="bilinear", align_corners=False)[0].permute(1, 2, 0).numpy()
+    frames = []
+    for t in range(n):
+        f = tex[m + t:m + t + h, m - 2 * t:m - 2 * t + w].copy()
+        f[8 + t:24 + t, 16 + 3 * t:32 + 3 * t] = 200.0
+        f += rng.integers(-2, 3, f.shape)
+        frames.append(np.clip(np.rint(f), 0, 255).astype(np.uint8))
+    return frames
+
+
+def _assert_close_frames(got, want):
+    assert len(got) == len(want)
+    diff = np.abs(np.stack(got).astype(np.int64) - np.stack(want))
+    assert diff.max() <= 1
+    assert (diff != 0).mean() < 1e-4
+
+
+def _assert_same_stream(port, jax_video):
+    assert len(port.gops) == len(jax_video.gops)
+    for a, b in zip(port.gops, jax_video.gops):
+        np.testing.assert_array_equal(a.i_frame.numpy(),
+                                      np.asarray(b.i_frame))
+        np.testing.assert_array_equal(a.mv.numpy(), np.asarray(b.mv))
+        assert (a.residuals is None) == (b.residuals is None)
+        if a.residuals is not None:
+            assert a.residuals.dtype == torch.int16
+            np.testing.assert_array_equal(a.residuals.numpy(),
+                                          np.asarray(b.residuals))
+
+
+@pytest.mark.parametrize("n_frames", [10, 9])
+def test_slice_matches_jax(rng, tmp_path, n_frames):
+    """Two full IPPP GOPs plus a tail GOP (I + 1 P for 10 frames, the I-frame
+    alone for 9): identical vectors and coefficients, decoded frames within
+    +-1, and each package decodes the other's .npz."""
+    frames = _clip(rng, n_frames, 64, 128)
+    port = Encoder(CodecConfig.production(), device="cpu",
+                   gop_batch=2).encode_frames(frames)
+    jvid = JaxEncoder(JaxConfig.production(), gop_batch=2).encode_frames(frames)
+    _assert_same_stream(port, jvid)
+    assert any(g.mv.any() for g in port.gops), "search found no motion"
+
+    dec = Decoder(device="cpu").decode(port)
+    jdec = JaxDecoder().decode(jvid)
+    _assert_close_frames(dec, jdec)
+    assert all(f.shape == (64, 128, 3) and f.dtype == np.uint8 for f in dec)
+    p_psnr = np.mean([10 * np.log10(255**2 / np.mean(
+        (dec[i].astype(float) - frames[i]) ** 2))
+        for i in range(n_frames) if i % 4])
+    assert p_psnr > 30.0
+
+    port.save_npz(tmp_path / "port.npz")
+    jvid.save_npz(str(tmp_path / "jax.npz"))
+    _assert_close_frames(JaxDecoder().decode(
+        JaxVideo.load_npz(str(tmp_path / "port.npz"))), dec)
+    from_jax_file = EncodedVideo.load_npz(str(tmp_path / "jax.npz"))
+    _assert_same_stream(from_jax_file, jvid)
+    _assert_close_frames(Decoder(device="cpu").decode(from_jax_file), jdec)
+    assert motion_cuda.LAUNCHES == {"sad_search": 0}
+    assert inter_cuda.LAUNCHES == {"fused_p_encode": 0, "fused_p_decode": 0}
+
+
+def test_all_intra_pattern_roundtrips_raw(rng):
+    """gop_pattern ("I",): every GOP is an I-frame alone, stored raw, so
+    decode returns the input exactly and no P-frame path runs."""
+    frames = _clip(rng, 3, 16, 24)
+    cfg = CodecConfig.production(gop_pattern=("I",))
+    video = Encoder(cfg, device="cpu").encode_frames(frames)
+    assert [g.num_p for g in video.gops] == [0, 0, 0]
+    np.testing.assert_array_equal(
+        np.stack(Decoder(device="cpu").decode(video)), np.stack(frames))
+
+
+def test_interop_in_memory(rng):
+    frames = _clip(rng, 6, 48, 64)
+    jvid = JaxEncoder(JaxConfig.production()).encode_frames(frames)
+    port = from_jax_video(jvid)
+    _assert_same_stream(port, jvid)
+    jdec = JaxDecoder().decode(jvid)
+    _assert_close_frames(Decoder(device="cpu").decode(port), jdec)
+
+    back = to_numpy_video(port)
+    rebuilt = JaxVideo(JaxConfig(**back["config"]), back["height"],
+                       back["width"], back["fps"], back["num_frames"],
+                       [JaxGOP(**g) for g in back["gops"]])
+    np.testing.assert_array_equal(np.stack(JaxDecoder().decode(rebuilt)),
+                                  np.stack(jdec))
+
+
+def test_pipeline_single_gop_entry_points(rng):
+    from vcs_h264_tpu_torch.models import pipeline
+    frames = _clip(rng, 3, 48, 64)
+    planar = torch.from_numpy(np.stack(frames)).permute(0, 3, 1, 2).contiguous()
+    cfg = CodecConfig.production()
+    gop = pipeline.encode_gop(planar[0], planar[1:], cfg)
+    assert gop.num_p == 2 and gop.num_coded == 3
+    out = pipeline.decode_gop(gop, cfg)
+    assert out.shape == (3, 3, 48, 64) and out.dtype == torch.uint8
+    assert torch.equal(out[0], planar[0])
+
+
+@pytest.mark.parametrize("kwargs", [
+    dict(quant_mode="reference"), dict(gop_pattern=("I", "B", "P")),
+    dict(chroma_420=True), dict(intra_qstep=24), dict(search_luma_only=True),
+])
+def test_unported_modes_raise_in_the_entry_points(kwargs, tmp_path, rng):
+    cfg = CodecConfig.production(**kwargs)
+    with pytest.raises(NotImplementedError):
+        Encoder(cfg, device="cpu")
+    if cfg.search_luma_only:
+        return          # encoder-side only: the stream does not record it
+    video = EncodedVideo(cfg, 16, 16, 25.0, 1, [])
+    video.save_npz(str(tmp_path / "v.npz"))
+    with pytest.raises(NotImplementedError):
+        EncodedVideo.load_npz(str(tmp_path / "v.npz"))
+    with pytest.raises(NotImplementedError):
+        Decoder(device="cpu").decode(video)
+
+
+def test_checkpoints_not_ported(rng, tmp_path):
+    with pytest.raises(NotImplementedError):
+        Encoder(CodecConfig.production(), device="cpu").encode_frames(
+            _clip(rng, 2, 16, 16), checkpoint_dir=str(tmp_path))
+
+
+def test_cuda_device_without_gpu_raises():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; the refusal is for machines "
+                    "without one")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Encoder(CodecConfig.production())
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Decoder(device="cuda")
+
+
+_ISOLATION = """
+import sys
+import numpy as np
+import torch
+torch.set_num_threads(1)
+from vcs_h264_tpu_torch import CodecConfig
+from vcs_h264_tpu_torch.models import Decoder, Encoder
+from vcs_h264_tpu_torch.ops import inter_cuda, motion_cuda
+rng = np.random.default_rng(0)
+frames = [rng.integers(0, 256, (16, 24, 3), dtype=np.uint8) for _ in range(6)]
+video = Encoder(CodecConfig.production(), device="cpu").encode_frames(frames)
+assert len(Decoder(device="cpu").decode(video)) == 6
+bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "vcs_h264_tpu"))
+launches = {**motion_cuda.LAUNCHES, **inter_cuda.LAUNCHES}
+print(bad, launches)
+sys.exit(1 if bad or any(launches.values()) else 0)
+"""
+
+
+def test_port_imports_no_jax_and_launches_nothing_on_cpu():
+    proc = subprocess.run([sys.executable, "-c", _ISOLATION], cwd=REPO,
+                          capture_output=True, text=True, timeout=300,
+                          env={**os.environ, "PYTHONPATH": REPO})
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_chip_smoke_refuses_to_run_without_gpu():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    proc = subprocess.run([sys.executable, "chip_smoke.py"], cwd=REPO,
+                          capture_output=True, text=True, timeout=300,
+                          env={**os.environ, "PYTHONPATH": REPO})
+    assert proc.returncode != 0
+    assert '"ok"' not in proc.stdout

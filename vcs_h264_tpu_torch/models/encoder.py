@@ -1,0 +1,117 @@
+"""Host-side encoder orchestration (counterpart of
+`vcs_h264_tpu/models/encoder.py:149-287`).
+
+Frames are grouped into GOPs (frame n is an I-frame when n % gop_len == 0),
+full GOPs are encoded `gop_batch` at a time on the device, and a shorter
+tail GOP (fewer P-frames, or the I-frame alone) on its own.
+"""
+
+from __future__ import annotations
+
+from typing import List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from vcs_h264_tpu_torch.config import CodecConfig, check_supported
+from vcs_h264_tpu_torch.models import pipeline
+from vcs_h264_tpu_torch.models.gop import EncodedGOP, EncodedVideo
+from vcs_h264_tpu_torch.ops.motion import check_backend
+
+
+def resolve_device(device) -> torch.device:
+    """The requested device, never silently replaced: asking for CUDA on a
+    machine without a usable GPU raises."""
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(f"device {device!r} requested but CUDA is not "
+                               "available")
+    elif dev.type != "cpu":
+        raise ValueError(f"unsupported device {device!r} (cuda or cpu)")
+    return dev
+
+
+def group_into_gops(frames: Sequence[np.ndarray], gop_len: int
+                    ) -> List[Tuple[np.ndarray, np.ndarray]]:
+    """[frames] -> [(i_frame [H, W, 3], p_frames [P, H, W, 3])] with the
+    dispatch `frame_num % gop_len == 0 -> I` (the JAX package's
+    `vcs_h264_tpu/io/video.py:group_into_gops`)."""
+    gops = []
+    for start in range(0, len(frames), gop_len):
+        chunk = frames[start:start + gop_len]
+        i_frame = chunk[0]
+        p = np.stack(chunk[1:]) if len(chunk) > 1 else \
+            np.zeros((0, *i_frame.shape), i_frame.dtype)
+        gops.append((i_frame, p))
+    return gops
+
+
+class Encoder:
+    """Encode BGR uint8 frames on `device` ("cuda" by default).
+
+    backend: "auto" (CUDA kernels on a GPU, plain PyTorch on the CPU) or
+    "plain" (the plain PyTorch versions on any device)."""
+
+    def __init__(self, cfg: CodecConfig, device="cuda", gop_batch: int = 8,
+                 backend: str = "auto"):
+        check_supported(cfg)
+        if gop_batch < 1:
+            raise ValueError("gop_batch must be >= 1")
+        check_backend(backend)
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.gop_batch = gop_batch
+        self.backend = backend
+
+    def _upload(self, hwc: np.ndarray) -> torch.Tensor:
+        """uint8 [..., H, W, 3] host frames -> planar [..., 3, H, W] on the
+        device (uint8 crosses the host link, 4x less than int32)."""
+        t = torch.from_numpy(np.ascontiguousarray(hwc, dtype=np.uint8))
+        return t.to(self.device).movedim(-1, -3).contiguous()
+
+    def encode_frames(self, frames: Sequence[np.ndarray], fps: float = 25.0,
+                      checkpoint_dir: Optional[str] = None) -> EncodedVideo:
+        """Encode BGR uint8 frames [H, W, 3] of one shape, H and W multiples
+        of the block size."""
+        if checkpoint_dir is not None:
+            raise NotImplementedError(
+                "vcs_h264_tpu_torch does not port per-GOP checkpoints yet "
+                "(ROADMAP M5)")
+        if not len(frames):
+            raise ValueError("no frames to encode")
+        cfg = self.cfg
+        h, w, _ = frames[0].shape
+        bs = cfg.block_size
+        if h % bs or w % bs:
+            raise ValueError(f"frame {h}x{w} must be a multiple of block {bs}")
+        grouped = group_into_gops(frames, cfg.gop_len)
+        # full GOPs are batched; a shorter tail GOP, or any GOP with no
+        # P-frame (an all-I pattern), is coded on its own
+        is_full = [p.shape[0] == cfg.gop_len - 1 > 0 for _, p in grouped]
+        full = [i for i, f in enumerate(is_full) if f]
+        tail = [i for i, f in enumerate(is_full) if not f]
+        encoded: List[Optional[EncodedGOP]] = [None] * len(grouped)
+
+        for start in range(0, len(full), self.gop_batch):
+            idxs = full[start:start + self.gop_batch]
+            i_b = self._upload(np.stack([grouped[i][0] for i in idxs]))
+            p_b = self._upload(np.stack([grouped[i][1] for i in idxs]))
+            out = pipeline.encode_gop_batch(i_b, p_b, cfg, self.backend)
+            for bi, idx in enumerate(idxs):
+                encoded[idx] = out.select(bi)
+
+        for idx in tail:
+            i_f, p_f = grouped[idx]
+            i_pl = self._upload(i_f)
+            if p_f.shape[0] == 0:
+                encoded[idx] = EncodedGOP(
+                    i_frame=i_pl,
+                    mv=torch.zeros((0, h // bs, w // bs, 2), dtype=torch.int32,
+                                   device=self.device),
+                    residuals=None)
+            else:
+                encoded[idx] = pipeline.encode_gop(i_pl, self._upload(p_f),
+                                                   cfg, self.backend)
+        return EncodedVideo(config=cfg, height=h, width=w, fps=fps,
+                            num_frames=len(frames), gops=encoded)

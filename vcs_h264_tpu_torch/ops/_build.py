@@ -1,0 +1,118 @@
+"""Build the CUDA kernels in `vcs_h264_tpu_torch/csrc/` with nvcc and load
+them through ctypes.
+
+At first use the `.cu` sources are compiled for Hopper (`sm_90a`) into one
+shared library with a plain C interface, placed in `vcs_h264_tpu_torch/build/`
+under a name keyed by a hash of the sources and flags, so an edited source is
+rebuilt and an unchanged one is loaded as is. Nothing here runs at import
+time; a missing nvcc or a failed build raises.
+
+`--fmad=false` keeps nvcc from contracting a*b+c into one fused multiply-add:
+the kernels' float arithmetic then rounds after every operation, as the
+plain PyTorch versions and the JAX package do, so round-half-even at .5 ties
+flips only where a sum's order differs.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+
+_PKG = Path(__file__).resolve().parent.parent
+CSRC = _PKG / "csrc"
+BUILD = _PKG / "build"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "--fmad=false", "-shared", "-Xcompiler", "-fPIC")
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+# C entry point -> argument types; every one returns its cudaError_t.
+SIGNATURES = {
+    # curs, refs, mv_out, G, F, C, H, W, bs, reach, step, static_threshold,
+    # stream
+    "vcs_sad_search": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),
+    # mv, refs, curs, tables, coeffs_out, G, F, H, W, stream
+    "vcs_fused_p_encode": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # mv, refs, coeffs, tables, frames_out, G, F, H, W, stream
+    "vcs_fused_p_decode": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+}
+
+_lock = threading.Lock()
+_lib = None
+build_seconds = None      # wall time of the last nvcc run, None if cached
+
+
+def find_nvcc() -> str:
+    """nvcc on PATH, then in $CUDA_HOME/bin, then in /usr/local/cuda/bin."""
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    candidates = []
+    if os.environ.get("CUDA_HOME"):
+        candidates.append(Path(os.environ["CUDA_HOME"]) / "bin" / "nvcc")
+    candidates.append(Path("/usr/local/cuda/bin/nvcc"))
+    for c in candidates:
+        if c.is_file() and os.access(c, os.X_OK):
+            return str(c)
+    raise RuntimeError(
+        "nvcc not found on PATH, in $CUDA_HOME/bin or in /usr/local/cuda/bin; "
+        "the CUDA kernels of vcs_h264_tpu_torch cannot be built")
+
+
+def _sources():
+    return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
+
+
+def library_path() -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in _sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return BUILD / f"libvcs_kernels_{h.hexdigest()[:16]}.so"
+
+
+def _compile(out: Path) -> None:
+    global build_seconds
+    nvcc = find_nvcc()
+    BUILD.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp),
+           *[str(s) for s in sorted(CSRC.glob("*.cu"))]]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(
+            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
+            f"{proc.stdout}\n{proc.stderr}")
+    os.replace(tmp, out)        # atomic: no process loads a partial file
+    build_seconds = time.perf_counter() - t0
+
+
+def load_library() -> ctypes.CDLL:
+    """Build (if needed) and load the kernel library; cached per process."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            out = library_path()
+            if not out.exists():
+                _compile(out)
+            lib = ctypes.CDLL(str(out))
+            for name, argtypes in SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = list(argtypes)
+                fn.restype = ctypes.c_int
+            _lib = lib
+        return _lib
+
+
+def check(err: int, name: str) -> None:
+    """Raise on a nonzero cudaError_t returned by a C entry point."""
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA error {err} at launch")

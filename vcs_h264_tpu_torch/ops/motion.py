@@ -1,0 +1,238 @@
+"""Block motion estimation and compensation (counterpart of
+`vcs_h264_tpu/ops/motion.py`), reference-exact.
+
+Semantics, as the JAX package pins them against the original Python
+reference:
+  * candidate positions p(b, k) = max(c_b - reach, 0) + step * k on each
+    axis, valid iff p + bs < min(c_b + reach, extent);
+  * the search SAD wraps like uint8 arithmetic and is ordered:
+    sum (ref_candidate - cur) & 255;
+  * selection is the first minimum in row-major (ki, kj) order, against a
+    virtual initial best at absolute position (0, 0) that any valid
+    candidate beats;
+  * a block whose saturating co-located SAD sum max(ref - cur, 0) is
+    <= static_threshold gets the zero vector;
+  * vectors are (dx, dy), dx along the column (W) axis.
+
+`motion_search_gops` sends a CUDA tensor to the hand-written kernel
+(`ops/motion_cuda.py`, K2) and a CPU tensor to the plain PyTorch version
+below; the plain version runs on a CUDA tensor only when asked for by
+name (`backend="plain"`), which is how the kernel is held against it on
+the card.
+
+Frames are planar: [..., C, H, W].
+"""
+
+from __future__ import annotations
+
+import functools
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+BACKENDS = ("auto", "plain")
+
+
+class MotionSearchPlan(NamedTuple):
+    """Static (host-precomputed) search geometry for a given frame shape."""
+    bs: int
+    reach: int
+    step: int
+    n_edge_i: int        # block rows whose window clamps at 0
+    n_edge_j: int
+    k: int               # candidates per axis
+    nbh: int
+    nbw: int
+    h: int
+    w: int
+    # [nbh, K] / [nbw, K] candidate validity (p + bs < i_max)
+    valid_i: np.ndarray
+    valid_j: np.ndarray
+    # [nbh, K] / [nbw, K] absolute candidate positions p = i_min + step*k
+    pos_i: np.ndarray
+    pos_j: np.ndarray
+
+
+@functools.lru_cache(maxsize=None)
+def make_plan(h: int, w: int, bs: int, reach: int, step: int) -> MotionSearchPlan:
+    if h % bs or w % bs:
+        raise ValueError(f"frame {h}x{w} must be a multiple of block {bs}")
+    nbh, nbw = h // bs, w // bs
+    k = -(-2 * reach // step)          # ceil(2*reach / step)
+    n_edge = -(-reach // bs)           # ceil(reach / bs)
+
+    def axis_plan(nb, extent):
+        c = np.arange(nb) * bs
+        lo = np.maximum(c - reach, 0)
+        hi = np.minimum(c + reach, extent)
+        pos = lo[:, None] + step * np.arange(k)[None, :]
+        valid = pos + bs < hi[:, None]
+        return pos.astype(np.int32), valid
+
+    pos_i, valid_i = axis_plan(nbh, h)
+    pos_j, valid_j = axis_plan(nbw, w)
+    return MotionSearchPlan(bs, reach, step, min(n_edge, nbh), min(n_edge, nbw),
+                            k, nbh, nbw, h, w, valid_i, valid_j, pos_i, pos_j)
+
+
+def key_packing(plan: MotionSearchPlan, c: int):
+    """(shift, sentinel) of the packed key (sad << sh) + flat index + 1."""
+    k, bs = plan.k, plan.bs
+    sh = (k * k + 1).bit_length()
+    sad_max = c * 255 * bs * bs
+    if (sad_max + 1) << sh >= 2**31:
+        raise ValueError(f"search key packing overflows int32 for C={c}, "
+                         f"bs={bs}, K={k}")
+    return sh, (sad_max + 1) << sh
+
+
+def tile_sums(x: torch.Tensor, bs: int) -> torch.Tensor:
+    """[..., C, H, W] -> per-(bs x bs)-block sums over C: [..., H/bs, W/bs]
+    int32."""
+    *lead, c, h, w = x.shape
+    x = x.reshape(*lead, c, h // bs, bs, w // bs, bs)
+    return x.sum(dim=(-5, -3, -1), dtype=torch.int32)
+
+
+def static_sad(curs: torch.Tensor, refs: torch.Tensor, bs: int) -> torch.Tensor:
+    """Saturating co-located SAD sum max(ref - cur, 0): curs [..., C, H, W]
+    against broadcastable refs -> [..., nbh, nbw] int32."""
+    return tile_sums((refs.to(torch.int16) - curs.to(torch.int16)).clamp_(min=0),
+                     bs)
+
+
+def sad_candidates(curs: torch.Tensor, refs: torch.Tensor,
+                   plan: MotionSearchPlan) -> torch.Tensor:
+    """Exact wrapping SAD of every (block, candidate):
+    curs [G, F, C, H, W], refs [G, C, H, W] -> [G, F, nbh, nbw, K, K] int32.
+
+    Loops over the K x K candidate indices. Candidate (ki, kj) of block
+    (bi, bj) sits at (pos_i[bi, ki], pos_j[bj, kj]), which is separable, so
+    each step gathers one shifted copy of the reference with two
+    index_selects; memory stays at a few frame-sized buffers at any K.
+    Positions past the frame are clamped: only invalid candidates reach
+    them, and selection masks those."""
+    bs, k, h, w = plan.bs, plan.k, plan.h, plan.w
+    dev = curs.device
+    cur16 = curs.to(torch.int16)
+    ref16 = refs.to(torch.int16)
+    offs = torch.arange(bs, device=dev)
+    pos_i = torch.as_tensor(np.minimum(plan.pos_i, h - bs), device=dev)
+    pos_j = torch.as_tensor(np.minimum(plan.pos_j, w - bs), device=dev)
+    out = torch.empty((*curs.shape[:2], plan.nbh, plan.nbw, k, k),
+                      dtype=torch.int32, device=dev)
+    for ki in range(k):
+        rows = (pos_i[:, ki, None] + offs).reshape(-1)              # [H]
+        ref_rows = ref16.index_select(-2, rows)
+        for kj in range(k):
+            cols = (pos_j[:, kj, None] + offs).reshape(-1)          # [W]
+            cand = ref_rows.index_select(-1, cols)[:, None]         # [G,1,C,H,W]
+            out[..., ki, kj] = tile_sums((cand - cur16) & 255, bs)
+    return out
+
+
+def select_mvs(sad: torch.Tensor, curs: torch.Tensor, refs: torch.Tensor,
+               plan: MotionSearchPlan, static_threshold: int) -> torch.Tensor:
+    """Candidate SADs [G, F, nbh, nbw, K, K] -> vectors [G, F, nbh, nbw, 2]
+    int32: validity mask, packed first-minimum key, (0, 0) fallback and the
+    static early-out."""
+    k = plan.k
+    dev = sad.device
+    sh, sent = key_packing(plan, curs.shape[2])
+    valid = torch.as_tensor(plan.valid_i[:, None, :, None]
+                            & plan.valid_j[None, :, None, :], device=dev)
+    idx = torch.arange(1, k * k + 1, dtype=torch.int32, device=dev).reshape(k, k)
+    key = torch.where(valid, (sad << sh) + idx,
+                      torch.tensor(sent + (1 << sh) - 1, dtype=torch.int32,
+                                   device=dev))
+    best = key.amin(dim=(-2, -1))
+    return mvs_from_best(best, curs, refs, plan, static_threshold, sh, sent)
+
+
+def mvs_from_best(best: torch.Tensor, curs: torch.Tensor, refs: torch.Tensor,
+                  plan: MotionSearchPlan, static_threshold: int, sh: int,
+                  sent: int) -> torch.Tensor:
+    """Packed best keys [G, F, nbh, nbw] -> vectors [G, F, nbh, nbw, 2]."""
+    bs, k, nbh, nbw = plan.bs, plan.k, plan.nbh, plan.nbw
+    dev = best.device
+    best = best.clamp(max=sent)
+    hit = best < sent
+    flat = ((best & ((1 << sh) - 1)) - 1).clamp(min=0)
+    ki = flat // k
+    kj = flat % k
+    bi = torch.arange(nbh, device=dev)[:, None]
+    bj = torch.arange(nbw, device=dev)[None, :]
+    pos_i = torch.as_tensor(plan.pos_i, device=dev)
+    pos_j = torch.as_tensor(plan.pos_j, device=dev)
+    zero = torch.zeros((), dtype=torch.int32, device=dev)
+    pi = torch.where(hit, pos_i[bi, ki], zero)
+    pj = torch.where(hit, pos_j[bj, kj], zero)
+    ci = (bi * bs).to(torch.int32)
+    cj = (bj * bs).to(torch.int32)
+    stat = static_sad(curs, refs[:, None], bs) <= static_threshold
+    pi = torch.where(stat, ci, pi)
+    pj = torch.where(stat, cj, pj)
+    return torch.stack([pj - cj, pi - ci], dim=-1).to(torch.int32)
+
+
+def motion_search_plain(curs: torch.Tensor, refs: torch.Tensor, *,
+                        bs: int = 8, reach: int = 16, step: int = 3,
+                        static_threshold: int = 2000) -> torch.Tensor:
+    """The plain PyTorch search, on any device: curs [G, F, C, H, W],
+    refs [G, C, H, W] -> [G, F, nbh, nbw, 2] int32."""
+    plan = make_plan(curs.shape[-2], curs.shape[-1], bs, reach, step)
+    sad = sad_candidates(curs, refs, plan)
+    return select_mvs(sad, curs, refs, plan, static_threshold)
+
+
+def motion_search_gops(curs: torch.Tensor, refs: torch.Tensor, *, bs: int = 8,
+                       reach: int = 16, step: int = 3,
+                       static_threshold: int = 2000,
+                       backend: str = "auto") -> torch.Tensor:
+    """GOP-batched search: curs [G, F, C, H, W] vs refs [G, C, H, W]
+    (uint8-valued) -> [G, F, nbh, nbw, 2] int32 (dx, dy).
+
+    backend "auto": the K2 kernel on a CUDA tensor, the plain version on a
+    CPU tensor. backend "plain": the plain version on either."""
+    check_backend(backend)
+    if curs.ndim != 5 or refs.ndim != 4 or curs.shape[0] != refs.shape[0] \
+            or curs.shape[2:] != refs.shape[1:]:
+        raise ValueError(f"curs {tuple(curs.shape)} / refs {tuple(refs.shape)}"
+                         " must be [G, F, C, H, W] / [G, C, H, W]")
+    if backend == "plain" or curs.device.type == "cpu":
+        return motion_search_plain(curs, refs, bs=bs, reach=reach, step=step,
+                                   static_threshold=static_threshold)
+    from vcs_h264_tpu_torch.ops import motion_cuda
+    return motion_cuda.sad_search(curs, refs, bs=bs, reach=reach, step=step,
+                                  static_threshold=static_threshold)
+
+
+def motion_compensate_gops(mv: torch.Tensor, refs: torch.Tensor, *,
+                           bs: int) -> torch.Tensor:
+    """Block compensation: mv [G, F, nbh, nbw, 2] (dx, dy) against per-GOP
+    refs [G, C, H, W] -> [G, F, C, H, W] in the refs' dtype.
+
+    Each block's source origin is clamped into the frame, so a vector from
+    a foreign stream never reads outside it; vectors from the search never
+    need the clamp. (The JAX package's dynamic_slice gather wraps a
+    negative origin before it clamps, so the two differ only for vectors
+    no search produces.)"""
+    g, f, nbh, nbw, _ = mv.shape
+    _, c, h, w = refs.shape
+    dev = refs.device
+    offs = torch.arange(bs, device=dev)
+    i0 = (torch.arange(nbh, device=dev)[:, None] * bs + mv[..., 1]).clamp(0, h - bs)
+    j0 = (torch.arange(nbw, device=dev)[None, :] * bs + mv[..., 0]).clamp(0, w - bs)
+    rows = i0[..., None, None] + offs[:, None]              # [G,F,nbh,nbw,bs,1]
+    cols = j0[..., None, None] + offs[None, :]              # [G,F,nbh,nbw,1,bs]
+    flat = (rows * w + cols).reshape(g, f, 1, -1)           # [G,F,1,nbh*nbw*bs*bs]
+    src = refs.reshape(g, 1, c, h * w).expand(g, f, c, h * w)
+    blocks = torch.gather(src, 3, flat.expand(g, f, c, flat.shape[-1]))
+    blocks = blocks.reshape(g, f, c, nbh, nbw, bs, bs)
+    return blocks.transpose(-3, -2).reshape(g, f, c, h, w)
+
+
+def check_backend(backend: str) -> None:
+    if backend not in BACKENDS:
+        raise ValueError(f"backend must be one of {BACKENDS}, got {backend!r}")

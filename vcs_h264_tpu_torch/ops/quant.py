@@ -1,0 +1,62 @@
+"""JPEG quantization tables and quality-factor scaling (counterpart of
+`vcs_h264_tpu/ops/quant.py:31-76`; the zigzag scan waits for the `.vcs`
+container, ROADMAP M6).
+
+    scale = 50/QF            (1 <= QF < 50)
+    scale = (100-QF)/50      (50 <= QF <= 99)
+    Q     = clip(round(Qbase * scale), 1, 255)
+"""
+
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+
+QY_BASE = np.array([
+    [16, 11, 10, 16, 24, 40, 51, 61],
+    [12, 12, 14, 19, 26, 48, 60, 55],
+    [14, 13, 16, 24, 40, 57, 69, 56],
+    [14, 17, 22, 29, 51, 87, 80, 62],
+    [18, 22, 37, 56, 68, 109, 103, 77],
+    [24, 35, 55, 64, 81, 104, 113, 92],
+    [49, 64, 78, 87, 103, 121, 120, 101],
+    [72, 92, 95, 98, 112, 100, 103, 99],
+], dtype=np.float64)
+
+QC_BASE = np.array([
+    [17, 18, 24, 47, 99, 99, 99, 99],
+    [18, 21, 26, 66, 99, 99, 99, 99],
+    [24, 26, 56, 99, 99, 99, 99, 99],
+    [47, 66, 99, 99, 99, 99, 99, 99],
+    [99, 99, 99, 99, 99, 99, 99, 99],
+    [99, 99, 99, 99, 99, 99, 99, 99],
+    [99, 99, 99, 99, 99, 99, 99, 99],
+    [99, 99, 99, 99, 99, 99, 99, 99],
+], dtype=np.float64)
+
+
+def qf_scale(qf: float) -> float:
+    """Quality factor -> table scale."""
+    if not (1 <= qf <= 99):
+        raise ValueError("quality factor must be in [1, 99]")
+    if qf < 50:
+        return 50.0 / qf
+    return (100.0 - qf) / 50.0
+
+
+@functools.lru_cache(maxsize=None)
+def quant_tables_np(qf: float):
+    """(QY, QC) scaled tables as float64, clipped to [1, 255]."""
+    s = qf_scale(qf)
+    qy = np.clip(np.round(QY_BASE * s), 1, 255)
+    qc = np.clip(np.round(QC_BASE * s), 1, 255)
+    return qy, qc
+
+
+def quant_tables(qf: float, device=None) -> torch.Tensor:
+    """Stacked float32 [3, 8, 8] table for (Y, Cr, Cb) channel order."""
+    qy, qc = quant_tables_np(qf)
+    return torch.tensor(np.stack([qy, qc, qc]), dtype=torch.float32,
+                        device=device)
