@@ -9,21 +9,39 @@ package. Phases, each of which exits nonzero on failure:
 
   1. the card (nvidia-smi name and power limit), torch and CUDA versions;
      TF32 off for matmul and cuDNN;
-  2. the kernel build, timed;
-  3. every kernel of the main path against its plain PyTorch version on the
-     card: first at small edge shapes (one block row, frames narrower than
-     the search window, partial CTAs, one P-frame), then at 1280x720, 8 GOPs
-     of 3 P-frames: K2 motion vectors identical;
-     K3 coefficients within 1 on at most 1e-5 of them; K4 pixels within 1
-     on at most 1e-4 of them; median times of kernel and plain version
-     (CUDA events, after warm-up);
-  4. the main path: a seeded synthetic 1280x720 clip of 34 frames (8 full
-     IPPP GOPs at gop_batch 8 plus a tail GOP of I + 1 P) through
-     Encoder(CodecConfig.production(), device="cuda").encode_frames ->
-     save_npz -> load_npz -> Decoder(device="cuda").decode, with every
-     kernel's launch count > 0 and the mean P-frame PSNR within 0.01 dB of
-     the same pipeline on the plain versions (backend="plain") on the card;
-     encode+decode fps of both paths as medians of three interleaved runs.
+  2. the kernel build (one nvcc per source, all at once), timed;
+  3. every kernel against its plain PyTorch version on the card:
+     a. K2/K3/K4 at small edge shapes (one block row, frames narrower than
+        the search window, partial CTAs, one P-frame, vectors whose source
+        origins fall before the top and left edges): vectors identical,
+        K3/K4 within 1 on at most 2 values per shape;
+     b. K5/K6 at small edge shapes (one 4x4 block, one block row, one block
+        column, a ragged plane, a plane built to escape): every output
+        bit-identical, escapes exercised;
+     c. K2/K3/K4 at 1280x720, 8 GOPs of 3 P-frames: K2 vectors identical; K3
+        coefficients within 1 on at most 1e-5 of them; K4 pixels within 1 on
+        at most 1e-4 of them;
+     d. K5/K6 on the 24 planes of the clip's 8 I-frames at 1280x720, qstep
+        24: K5 qcoef, modes, escape and recon identical to the plain
+        version; K6 lossy on K5's payload identical to K5's recon; K6
+        lossless on the plain lossless codec's residuals identical to the
+        source planes;
+     with median times of kernel and plain version (CUDA events, after
+     warm-up);
+  4. the main paths through the user entry points, each with the launch
+     counts set to 0 just before its kernel run and read just after:
+     a. raw I-frames: a seeded synthetic 1280x720 clip of 34 frames (8 full
+        IPPP GOPs at gop_batch 8 plus a tail GOP of I + 1 P) through
+        Encoder(CodecConfig.production(), device="cuda").encode_frames ->
+        save_npz -> load_npz -> Decoder(device="cuda").decode: K2-K4
+        launched, P-frame PSNR within 0.01 dB of the plain versions;
+     b. production, CodecConfig.production(intra_qstep=24), on the same
+        clip: the same chain, then decode_intra_frames_lossy_batch of the
+        loaded I-frame payloads, as the JAX package's bench charges it:
+        K2-K6 launched, the intra decode identical to the stored I-frames,
+        I-frame reconstructions, modes and qcoef identical to the plain
+        path's, I- and P-frame PSNR within 0.01 dB of it;
+     fps of both paths as medians of three interleaved runs.
 
 The last two lines of standard output are the kernels' JSON record and the
 device record {"ok": true, "device": {...}}; without a CUDA device the script
@@ -46,6 +64,8 @@ H, W = 720, 1280
 GOPS, P_PER_GOP = 8, 3
 CLIP_FRAMES = 34
 PSNR_TOL_DB = 0.01
+QSTEP = 24
+PAYLOAD = ("i_qcoef", "i_modes", "i_escape")
 
 
 def fail(msg: str) -> None:
@@ -102,13 +122,44 @@ def time_ms(fn, reps: int, warmup: int = 2) -> float:
     return float(np.median(times))
 
 
+def counters():
+    from vcs_h264_tpu_torch.ops import inter_cuda, intra_cuda, motion_cuda
+    return (motion_cuda.LAUNCHES, inter_cuda.LAUNCHES, intra_cuda.LAUNCHES)
+
+
+def reset_counts() -> None:
+    for c in counters():
+        for k in c:
+            c[k] = 0
+
+
+def read_counts() -> dict:
+    return {k: v for c in counters() for k, v in c.items()}
+
+
+def edge_vectors(g, f, h, w, bs=8):
+    """Vectors whose source origins fall before the top and left edges: -1,
+    -bs and -extent-3 on each axis (and 0), in every combination, cycled
+    over the blocks."""
+    nbh, nbw = h // bs, w // bs
+    cases = [(oj, oi) for oi in (-1, -bs, -h - 3, 0)
+             for oj in (-1, -bs, -w - 3, 0)]
+    n = np.arange(g * f * nbh * nbw).reshape(g, f, nbh, nbw) % len(cases)
+    o = np.array(cases)[n]                                   # [g,f,nbh,nbw,2]
+    o[..., 0] -= np.arange(nbw) * bs
+    o[..., 1] -= np.arange(nbh)[:, None] * bs
+    return o.astype(np.int32)
+
+
 def edge_shape_phase() -> None:
     """Phase 3a: kernels vs plain versions at small shapes the 720p clip
     does not reach: one block row (no valid candidate row), frames narrower
     than 2*reach, block columns not a multiple of the 4 blocks a K3/K4 CTA
-    holds, and one P-frame per GOP. Bound: identical vectors; coefficients
-    and pixels within 1 on at most 2 values per shape (at 720p the
-    differing fractions are ~1e-6, so a few thousand values see none)."""
+    holds, one P-frame per GOP, and K3/K4 on searched vectors, random
+    vectors and vectors whose source origins fall before the top and left
+    edges. Bound: identical vectors; coefficients and pixels within 1 on at
+    most 2 values per shape and vector set (at 720p the differing fractions
+    are ~1e-6, so a few thousand values see none)."""
     import torch
     from vcs_h264_tpu_torch.ops import inter_cuda, motion, motion_cuda
 
@@ -127,8 +178,9 @@ def edge_shape_phase() -> None:
             fail(f"K2 vectors differ from the plain search at {(g, f, h, w)}")
         mv_r = torch.from_numpy(
             rng.integers(-16, 17, mv_p.shape, dtype=np.int32)).cuda()
+        mv_e = torch.from_numpy(edge_vectors(g, f, h, w)).cuda()
         worst = []
-        for mv in (mv_p, mv_r):
+        for mv in (mv_p, mv_r, mv_e):
             co = inter_cuda.encode_p_coeffs_plain(mv, refs, curs, 50.0)
             pairs = ((inter_cuda.fused_p_encode(mv, refs, curs, 50.0), co),
                      (inter_cuda.fused_p_decode(mv, refs, co, 50.0),
@@ -140,7 +192,122 @@ def edge_shape_phase() -> None:
                     fail(f"K3/K4 outside the bound at {(g, f, h, w)}: "
                          f"{worst[-1]}")
         print(f"[edge {g}x{f}x{h}x{w}] K2 vectors identical; K3/K4 "
-              f"(max |diff|, count) searched/random: {worst}")
+              f"(max |diff|, count) searched/random/before-edge: {worst}")
+
+
+def escape_plane(h, w):
+    """A plane on which lossy intra (any qstep) and the lossless codec both
+    escape: the 128 border reconstructs exactly, the 0 interior then
+    reconstructs exactly (DC of 128 + 128 wraps to 0), and every prediction
+    of a 255 block among exact zeros is 0, so no mode beats 16 * 255."""
+    bi = np.arange(h // 4)[:, None]
+    bj = np.arange(w // 4)[None, :]
+    blk = np.where((bi == 0) | (bj == 0), 128, 0)
+    blk = np.where((bi >= 3) & (bj >= 3) & (bi % 2 == 1) & (bj % 2 == 1),
+                   255, blk)
+    return np.kron(blk, np.ones((4, 4), int)).astype(np.uint8)
+
+
+def check_intra(planes, qstep: int, what: str):
+    """K5 and K6 (lossy and lossless) against their plain versions on
+    uint8 planes [N, H, W] on the card: every output identical. Returns
+    (K5 outputs, the lossless decode's inputs (residual, modes, escape),
+    the largest |kernel - plain| of K5 and of K6)."""
+    import torch
+    from vcs_h264_tpu_torch.ops import intra, intra_cuda
+
+    def err(a, b) -> int:
+        if a.dtype != b.dtype or a.shape != b.shape:
+            fail(f"{a.dtype} {tuple(a.shape)} against {b.dtype} "
+                 f"{tuple(b.shape)} ({what})")
+        return int((a.to(torch.int64) - b.to(torch.int64)).abs().max())
+
+    k5 = intra_cuda.intra_encode(planes, qstep)
+    p5 = intra.intra_encode4x4_lossy_plain(planes, qstep)
+    err5 = 0
+    for name, a, b in zip(("qcoef", "modes", "escape", "recon"), k5, p5):
+        err5 = max(err5, err(a, b))
+        if err5:
+            fail(f"K5 {name} differs from the plain version ({what})")
+    k6 = intra_cuda.intra_decode(*k5[:3], qstep, True)
+    err6 = err(k6, intra.decode_planes_plain(*k5[:3], qstep, True))
+    if err6 or not torch.equal(k6, k5[3]):
+        fail(f"K6 lossy decode differs from K5's recon ({what})")
+    res, modes, esc = intra.luma4x4_codec(planes)
+    lossless = (res.to(torch.int16).contiguous(), modes.to(torch.int8)
+                .contiguous(), esc.contiguous())
+    k6l = intra_cuda.intra_decode(*lossless, 0, False)
+    err6 = max(err6, err(k6l, intra.decode_planes_plain(*lossless, 0, False)))
+    if err6 or not torch.equal(k6l, planes.to(torch.int32)):
+        fail(f"K6 lossless decode differs from the source planes ({what})")
+    return k5, lossless, (err5, err6)
+
+
+def intra_edge_phase() -> None:
+    """Phase 3b: K5/K6 vs plain versions at small shapes: one block, one
+    block row, one block column (a plane taller than its diagonals are
+    long), a ragged plane, and planes built to escape."""
+    import torch
+
+    rng = np.random.default_rng(3)
+    for n, h, w in ((1, 4, 4), (2, 8, 64), (3, 64, 8), (2, 20, 36)):
+        planes = torch.from_numpy(
+            rng.integers(0, 256, (n, h, w), dtype=np.uint8)).cuda()
+        for qstep in (8, QSTEP):
+            check_intra(planes, qstep, f"{n}x{h}x{w} q{qstep}")
+        print(f"[edge intra {n}x{h}x{w}] K5/K6 identical to plain at "
+              f"qstep 8 and {QSTEP}, K6 lossless identical")
+    planes = torch.from_numpy(np.stack([
+        escape_plane(32, 48),
+        rng.integers(0, 256, (32, 48), dtype=np.uint8)])).cuda()
+    k5, lossless, _ = check_intra(planes, QSTEP, "escape planes")
+    n_esc, n_esc_l = int(k5[2].sum()), int(lossless[2].sum())
+    print(f"[edge intra escape 2x32x48] K5/K6 identical to plain; escapes "
+          f"(escape plane and a random one): "
+          f"lossy {n_esc}, lossless {n_esc_l}")
+    if n_esc == 0 or n_esc_l == 0:
+        fail("the escape planes did not escape")
+
+
+def intra_kernel_phase(frames, card: str):
+    """Phase 3d: K5/K6 vs plain versions on the clip's 24 I-frame planes."""
+    import torch
+    from vcs_h264_tpu_torch.ops import intra, intra_cuda
+
+    i_frames = np.stack(frames[:GOPS * (P_PER_GOP + 1):P_PER_GOP + 1])
+    planes = torch.from_numpy(i_frames).cuda().permute(0, 3, 1, 2) \
+        .reshape(-1, H, W).contiguous()                      # [24, H, W]
+    k5, lossless, (err5, err6) = check_intra(
+        planes, QSTEP, f"{planes.shape[0]} planes {W}x{H}")
+    q, modes, esc, rec = k5
+    print(f"[K5 intra_encode] qcoef, modes, escape, recon identical to the "
+          f"plain version on {planes.shape[0]} planes {W}x{H} at qstep "
+          f"{QSTEP}; escapes {int(esc.sum())}, nonzero qcoef "
+          f"{float((q != 0).float().mean()):.4f}")
+    print("[K6 intra_decode] lossy decode identical to K5's recon; "
+          "lossless decode identical to the source planes")
+    results = {
+        "intra_encode": dict(
+            max_abs_err=err5,
+            ms=time_ms(lambda: intra_cuda.intra_encode(planes, QSTEP), 20),
+            plain_ms=time_ms(lambda: intra.intra_encode4x4_lossy_plain(
+                planes, QSTEP), 3, warmup=1)),
+        "intra_decode": dict(
+            max_abs_err=err6,
+            ms=time_ms(lambda: intra_cuda.intra_decode(q, modes, esc, QSTEP,
+                                                       True), 20),
+            plain_ms=time_ms(lambda: intra.decode_planes_plain(
+                q, modes, esc, QSTEP, True), 3, warmup=1)),
+    }
+    lossless_ms = time_ms(lambda: intra_cuda.intra_decode(*lossless, 0,
+                                                          False), 20)
+    for name, r in results.items():
+        print(f"[time {name}] kernel {r['ms']:.4f} ms, plain "
+              f"{r['plain_ms']:.4f} ms, at N={planes.shape[0]} {W}x{H} "
+              f"qstep {QSTEP} ({card})")
+    print(f"[time intra_decode lossless] kernel {lossless_ms:.4f} ms at "
+          f"N={planes.shape[0]} {W}x{H} ({card})")
+    return results
 
 
 def kernel_phase(frames, card: str):
@@ -221,16 +388,20 @@ def kernel_phase(frames, card: str):
     return results
 
 
-def run_codec(frames, backend: str):
-    """Encode -> .npz -> decode through the user entry points; returns
-    (decoded frames, encoded video, encode s, decode s)."""
+def run_codec(frames, backend: str, qstep: int = 0):
+    """Encode -> .npz -> decode through the user entry points, then, with
+    lossy intra, the intra decode of the loaded I-frame payloads in batches
+    of 8 GOPs (as the JAX package's bench charges it). Returns (decoded
+    frames, encoded video, intra-decoded I-frames, encode s, decode s,
+    intra decode s)."""
     import torch
     from vcs_h264_tpu_torch import CodecConfig
     from vcs_h264_tpu_torch.models import Decoder, EncodedVideo, Encoder
+    from vcs_h264_tpu_torch.models import intra_codec
 
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    video = Encoder(CodecConfig.production(), device="cuda",
+    video = Encoder(CodecConfig.production(intra_qstep=qstep), device="cuda",
                     backend=backend).encode_frames(frames)
     torch.cuda.synchronize()
     t_enc = time.perf_counter() - t0
@@ -239,45 +410,66 @@ def run_codec(frames, backend: str):
         video.save_npz(path)
         loaded = EncodedVideo.load_npz(path)
     for a, b in zip(video.gops, loaded.gops):
-        if not (torch.equal(a.mv.cpu(), b.mv)
-                and (a.residuals is None) == (b.residuals is None)
-                and (a.residuals is None
-                     or torch.equal(a.residuals.cpu(), b.residuals))):
-            fail(".npz roundtrip changed the stream")
+        for k in ("i_frame", "mv", "residuals", *PAYLOAD):
+            x, y = getattr(a, k), getattr(b, k)
+            if (x is None) != (y is None) or (
+                    x is not None and not torch.equal(x.cpu(), y)):
+                fail(f".npz roundtrip changed the stream ({k})")
     t0 = time.perf_counter()
     decoded = Decoder(device="cuda", backend=backend).decode(loaded)
     t_dec = time.perf_counter() - t0
-    return decoded, video, t_enc, t_dec
+    i_dec, t_intra = [], 0.0
+    if qstep:
+        t0 = time.perf_counter()
+        for s in range(0, len(loaded.gops), GOPS):
+            chunk = loaded.gops[s:s + GOPS]
+            pay = intra_codec.IntraFrameLossy(*(
+                torch.stack([getattr(g, k) for g in chunk]).cuda()
+                for k in PAYLOAD))
+            i_dec.extend(intra_codec.decode_intra_frames_lossy_batch(
+                pay, qstep, backend).cpu())
+        t_intra = time.perf_counter() - t0
+    return decoded, video, i_dec, t_enc, t_dec, t_intra
 
 
-def main_path_phase(frames, card: str):
-    """Phase 4: the port's user entry points, kernels vs plain versions."""
-    from vcs_h264_tpu_torch.ops import inter_cuda, motion_cuda
+def psnr_of(decoded, frames, idx) -> float:
     from vcs_h264_tpu_torch.utils.metrics import psnr
+    return float(np.mean([psnr(decoded[i], frames[i]) for i in idx]))
 
-    counters = (motion_cuda.LAUNCHES, inter_cuda.LAUNCHES)
-    run_codec(frames, "auto")           # warm-up: allocator, cuBLAS, shapes
-    run_codec(frames, "plain")
-    for c in counters:
-        for k in c:
-            c[k] = 0
-    decoded, video, t_enc, t_dec = run_codec(frames, "auto")
-    launches = {k: v for c in counters for k, v in c.items()}
-    print(f"[main path] kernel launches {launches}")
-    if any(v == 0 for v in launches.values()):
-        fail("a kernel of the main path was never launched")
-    dec_plain, video_plain, tp_enc, tp_dec = run_codec(frames, "plain")
+
+def main_path_phase(frames, card: str, qstep: int):
+    """Phase 4: the port's user entry points, kernels vs plain versions, at
+    intra_qstep `qstep` (0: raw I-frames). Returns the kernel run's launch
+    counts."""
+    import torch
+
+    label = f"main path, intra_qstep {qstep}"
+    run_codec(frames, "auto", qstep)      # warm-up: allocator, shapes
+    run_codec(frames, "plain", qstep)
+    reset_counts()
+    decoded, video, i_dec, *t_k = run_codec(frames, "auto", qstep)
+    launches = read_counts()
+    print(f"[{label}] kernel launches {launches}")
+    want = ("sad_search", "fused_p_encode", "fused_p_decode") + (
+        ("intra_encode", "intra_decode") if qstep else ())
+    if any(launches[k] == 0 for k in want):
+        fail(f"a kernel of the main path was never launched ({label})")
+    dec_plain, video_plain, i_dec_plain, *t_p = run_codec(frames, "plain",
+                                                          qstep)
     # two more runs of each path, interleaved, for medians of three
-    times = {"auto": [(t_enc, t_dec)], "plain": [(tp_enc, tp_dec)]}
+    times = {"auto": [t_k], "plain": [t_p]}
     for backend in ("plain", "auto", "auto", "plain"):
-        times[backend].append(run_codec(frames, backend)[2:])
+        times[backend].append(run_codec(frames, backend, qstep)[3:])
 
-    gop_len = 4
+    gop_len = P_PER_GOP + 1
     if len(decoded) != len(frames) or decoded[0].shape != (H, W, 3):
         fail(f"decoded {len(decoded)} frames of {decoded[0].shape}")
+    i_idx = list(range(0, len(frames), gop_len))
     p_idx = [i for i in range(len(frames)) if i % gop_len]
-    psnr_k = float(np.mean([psnr(decoded[i], frames[i]) for i in p_idx]))
-    psnr_p = float(np.mean([psnr(dec_plain[i], frames[i]) for i in p_idx]))
+    psnr_i = {b: psnr_of(d, frames, i_idx) for b, d in
+              (("kernels", decoded), ("plain", dec_plain))}
+    psnr_p = {b: psnr_of(d, frames, p_idx) for b, d in
+              (("kernels", decoded), ("plain", dec_plain))}
     mvs = np.concatenate([g.mv.cpu().numpy().reshape(-1, 2)
                           for g in video.gops])
     mvs_plain = np.concatenate([g.mv.cpu().numpy().reshape(-1, 2)
@@ -285,24 +477,55 @@ def main_path_phase(frames, card: str):
     static = float(np.mean(np.all(mvs == 0, axis=-1)))
     pix_diff = max(int(np.abs(a.astype(np.int32) - b).max())
                    for a, b in zip(decoded, dec_plain))
-    print(f"[main path] {len(frames)} frames {W}x{H}, {len(video.gops)} "
-          f"GOPs; P-frame PSNR kernels {psnr_k:.4f} dB, plain {psnr_p:.4f} "
-          f"dB; static-block ratio {static:.4f}; MVs identical to plain "
-          f"{np.array_equal(mvs, mvs_plain)}; max decoded pixel diff "
-          f"{pix_diff}")
-    for backend, label in (("auto", "kernels"), ("plain", "plain")):
+    co_diff = [(a.residuals.cpu().to(torch.int32) - b.residuals.cpu()).abs()
+               for a, b in zip(video.gops, video_plain.gops)
+               if a.residuals is not None]
+    n_co = sum(int((d != 0).sum()) for d in co_diff)
+    max_co = max(int(d.max()) for d in co_diff)
+    print(f"[{label}] {len(frames)} frames {W}x{H}, {len(video.gops)} GOPs; "
+          f"I-frame PSNR kernels {psnr_i['kernels']:.4f} dB, plain "
+          f"{psnr_i['plain']:.4f} dB; P-frame PSNR kernels "
+          f"{psnr_p['kernels']:.4f} dB, plain {psnr_p['plain']:.4f} dB; "
+          f"static-block ratio {static:.4f}; MVs identical to plain "
+          f"{np.array_equal(mvs, mvs_plain)}; P-frame coefficients that "
+          f"differ from plain {n_co} of {sum(d.numel() for d in co_diff)} "
+          f"(max |diff| {max_co}); max decoded pixel diff {pix_diff}")
+    if qstep:
+        for g, (a, b) in enumerate(zip(video.gops, video_plain.gops)):
+            for k in ("i_frame", *PAYLOAD):
+                if not torch.equal(getattr(a, k).cpu(), getattr(b, k).cpu()):
+                    fail(f"GOP {g}: {k} of the kernel path differs from the "
+                         "plain path's")
+        for g, (gop, a, b) in enumerate(zip(video.gops, i_dec, i_dec_plain)):
+            if not (torch.equal(a, gop.i_frame.cpu()) and torch.equal(a, b)):
+                fail(f"GOP {g}: the intra decode of the loaded payload "
+                     "differs from the stored I-frame")
+        print(f"[{label}] I-frame reconstructions, modes, escapes and qcoef "
+              f"identical to the plain path for all {len(video.gops)} GOPs; "
+              "the intra decode of every loaded payload is identical to its "
+              "stored I-frame")
+    for backend, name in (("auto", "kernels"), ("plain", "plain")):
         runs = times[backend]
-        fps = [len(frames) / (e + d) for e, d in runs]
-        print(f"[main path] encode+decode fps, {label}: median "
-              f"{float(np.median(fps)):.2f} of runs "
-              f"{[round(x, 2) for x in fps]}; encode s "
-              f"{[round(e, 4) for e, _ in runs]}, decode s "
-              f"{[round(d, 4) for _, d in runs]} ({card})")
-    if not np.isfinite(psnr_k) or psnr_k < 30.0:
-        fail(f"P-frame PSNR {psnr_k} dB is implausible for QF 50")
-    if abs(psnr_k - psnr_p) > PSNR_TOL_DB:
-        fail(f"kernel PSNR {psnr_k} vs plain {psnr_p} dB differ by more "
-             f"than {PSNR_TOL_DB}")
+        fps = [len(frames) / (e + d) for e, d, _ in runs]
+        line = (f"[{label}] {name}: encode+decode fps median "
+                f"{float(np.median(fps)):.2f} of runs "
+                f"{[round(x, 2) for x in fps]}; encode s "
+                f"{[round(e, 4) for e, _, _ in runs]}, decode s "
+                f"{[round(d, 4) for _, d, _ in runs]}")
+        if qstep:
+            fps_i = [len(frames) / (e + d + i) for e, d, i in runs]
+            line += (f"; with the intra decode: fps median "
+                     f"{float(np.median(fps_i)):.2f} of runs "
+                     f"{[round(x, 2) for x in fps_i]}, intra decode s "
+                     f"{[round(i, 4) for _, _, i in runs]}")
+        print(f"{line} ({card})")
+    floor = 20.0 if qstep else 30.0       # a lossy I-frame lowers P too
+    if not np.isfinite(psnr_p["kernels"]) or psnr_p["kernels"] < floor:
+        fail(f"P-frame PSNR {psnr_p['kernels']} dB is implausible for QF 50")
+    for what, v in (("I", psnr_i), ("P", psnr_p)):
+        if abs(v["kernels"] - v["plain"]) > PSNR_TOL_DB:
+            fail(f"{what}-frame PSNR of the kernels {v['kernels']} vs plain "
+                 f"{v['plain']} dB differ by more than {PSNR_TOL_DB}")
     return launches
 
 
@@ -332,9 +555,12 @@ def main() -> int:
           f"{_build.library_path().name}")
 
     edge_shape_phase()
+    intra_edge_phase()
     frames = synthetic_clip(args.seed, CLIP_FRAMES)
     kernels = kernel_phase(frames, card)
-    launches = main_path_phase(frames, card)
+    kernels.update(intra_kernel_phase(frames, card))
+    main_path_phase(frames, card, 0)
+    launches = main_path_phase(frames, card, QSTEP)
 
     meta = {
         "sad_search": ("vcs_h264_tpu_torch/csrc/motion_sad.cu",
@@ -343,6 +569,10 @@ def main() -> int:
                            "vcs_h264_tpu/ops/inter_pallas.py:387"),
         "fused_p_decode": ("vcs_h264_tpu_torch/csrc/inter_fused.cu",
                            "vcs_h264_tpu/ops/inter_pallas.py:413"),
+        "intra_encode": ("vcs_h264_tpu_torch/csrc/intra_wavefront.cu",
+                         "vcs_h264_tpu/ops/intra_pallas.py:341"),
+        "intra_decode": ("vcs_h264_tpu_torch/csrc/intra_wavefront.cu",
+                         "vcs_h264_tpu/ops/intra_pallas.py:381"),
     }
     record = [dict(name=name, route="cuda", source=src, replaces=rep,
                    launches=launches[name], **kernels[name])

@@ -105,8 +105,7 @@ def test_compensate_matches_jax(rng):
     g, f, h, w = 2, 3, 48, 64
     refs = rng.integers(0, 256, (g, 3, h, w)).astype(np.uint8)
     # vectors past the bottom/right edge exercise the clamp of the source
-    # origin; origins above/left of the frame are left out, since the JAX
-    # gather wraps a negative start before it clamps
+    # origin; origins above/left of the frame have their own test below
     mv = rng.integers(-20, 21, (g, f, h // 8, w // 8, 2))
     mv[..., 1] = np.maximum(mv[..., 1], -np.arange(h // 8)[:, None] * 8)
     mv[..., 0] = np.maximum(mv[..., 0], -np.arange(w // 8) * 8)
@@ -117,6 +116,51 @@ def test_compensate_matches_jax(rng):
         jnp.asarray(mv), jnp.asarray(refs, jnp.int32), bs=8, reach=16,
         backend="xla"))
     np.testing.assert_array_equal(got.numpy(), want)
+
+
+def _edge_vectors(g, f, nbh, nbw, bs, h, w):
+    """Vectors whose source origins fall before the top and left edges: -1,
+    -bs and -extent-3 on each axis, in every combination, cycled over the
+    blocks."""
+    cases = [(dj, di) for di in (-1, -bs, -h - 3, 0) for dj in (-1, -bs, -w - 3, 0)]
+    mv = np.zeros((g, f, nbh, nbw, 2), np.int64)
+    for n, (gi, fi, bi, bj) in enumerate(np.ndindex(g, f, nbh, nbw)):
+        oj, oi = cases[n % len(cases)]
+        mv[gi, fi, bi, bj] = (oj - bj * bs, oi - bi * bs)
+    return mv.astype(np.int32)
+
+
+def test_compensate_matches_jax_before_top_left_edges(rng):
+    """A negative source origin is placed as lax.dynamic_slice places it
+    (extent added, then clamped), so the port's gather is identical to the
+    JAX gather there too; the P-frame decode built on it stays within the
+    +-1 bound of the JAX decode."""
+    from vcs_h264_tpu.config import CodecConfig as JaxConfig
+    from vcs_h264_tpu.models import pipeline as jpipeline
+    from vcs_h264_tpu_torch.ops import inter_cuda
+    g, f, h, w, bs = 2, 2, 48, 64, 8
+    refs = rng.integers(0, 256, (g, 3, h, w)).astype(np.uint8)
+    mv = _edge_vectors(g, f, h // bs, w // bs, bs, h, w)
+    got = motion.motion_compensate_gops(torch.from_numpy(mv),
+                                        torch.from_numpy(refs), bs=bs)
+    want = np.asarray(jmotion.motion_compensate_gops(
+        jnp.asarray(mv), jnp.asarray(refs, jnp.int32), bs=bs, reach=16,
+        backend="xla"))
+    np.testing.assert_array_equal(got.numpy(), want)
+
+    curs = rng.integers(0, 256, (g, f, 3, h, w)).astype(np.uint8)
+    co = inter_cuda.encode_p_coeffs(torch.from_numpy(mv),
+                                    torch.from_numpy(refs),
+                                    torch.from_numpy(curs), 50.0)
+    cfg = JaxConfig.production()
+    want_d = np.asarray(jnp.clip(
+        want + jpipeline.dct_decompress_residual_signed(
+            jnp.asarray(co.numpy()), cfg), 0, 255))
+    got_d = inter_cuda.decode_p_frames(torch.from_numpy(mv),
+                                       torch.from_numpy(refs), co, 50.0)
+    diff = np.abs(got_d.numpy().astype(np.int64) - want_d)
+    assert diff.max() <= 1
+    assert (diff != 0).mean() < 1e-4
 
 
 def test_kernel_wrapper_refuses_cpu_tensors(rng):

@@ -51,7 +51,7 @@ def test_config_validation_matches_jax(kwargs):
     dict(quant_mode="rounded", with_dct=False, block_size=8),
     dict(quant_mode="rounded", gop_pattern=("I", "B", "P")),
     dict(quant_mode="rounded", chroma_420=True),
-    dict(quant_mode="rounded", intra_i=True, intra_qstep=24),
+    dict(quant_mode="rounded", with_residual=False),
     dict(quant_mode="rounded", search_luma_only=True),
 ])
 def test_unported_modes_raise(kwargs):
@@ -63,6 +63,7 @@ def test_production_slice_is_supported():
     check_supported(CodecConfig.production())
     check_supported(CodecConfig.production(quality_factor=90.0,
                                            gop_pattern=("I", "P")))
+    check_supported(CodecConfig.production(intra_qstep=24))
 
 
 def test_blocks_match_jax(rng):

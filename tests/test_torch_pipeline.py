@@ -1,7 +1,8 @@
 """The whole vcs_h264_tpu_torch slice against the JAX package on the CPU:
 Encoder.encode_frames -> .npz -> Decoder.decode with
-CodecConfig.production(), each package's stream decoded by the other, and
-the port's isolation from JAX and from the GPU when run on the CPU."""
+CodecConfig.production(), raw I-frames and lossy intra I-frames
+(intra_qstep=24), each package's stream decoded by the other, and the
+port's isolation from JAX and from the GPU when run on the CPU."""
 
 import os
 import subprocess
@@ -22,7 +23,10 @@ from vcs_h264_tpu.models.gop import EncodedVideo as JaxVideo  # noqa: E402
 from vcs_h264_tpu_torch import CodecConfig  # noqa: E402
 from vcs_h264_tpu_torch.interop import from_jax_video, to_numpy_video  # noqa: E402
 from vcs_h264_tpu_torch.models import Decoder, EncodedVideo, Encoder  # noqa: E402
-from vcs_h264_tpu_torch.ops import inter_cuda, motion_cuda  # noqa: E402
+from vcs_h264_tpu_torch.models import intra_codec  # noqa: E402
+from vcs_h264_tpu_torch.ops import inter_cuda, intra_cuda, motion_cuda  # noqa: E402
+
+PAYLOAD = ("i_qcoef", "i_modes", "i_escape")
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -63,6 +67,11 @@ def _assert_same_stream(port, jax_video):
             assert a.residuals.dtype == torch.int16
             np.testing.assert_array_equal(a.residuals.numpy(),
                                           np.asarray(b.residuals))
+        for k in PAYLOAD:
+            assert (getattr(a, k) is None) == (getattr(b, k) is None), k
+            if getattr(a, k) is not None:
+                np.testing.assert_array_equal(getattr(a, k).numpy(),
+                                              np.asarray(getattr(b, k)))
 
 
 @pytest.mark.parametrize("n_frames", [10, 9])
@@ -95,6 +104,83 @@ def test_slice_matches_jax(rng, tmp_path, n_frames):
     _assert_close_frames(Decoder(device="cpu").decode(from_jax_file), jdec)
     assert motion_cuda.LAUNCHES == {"sad_search": 0}
     assert inter_cuda.LAUNCHES == {"fused_p_encode": 0, "fused_p_decode": 0}
+
+
+@pytest.mark.parametrize("n_frames", [10, 9])
+def test_lossy_intra_slice_matches_jax(rng, tmp_path, n_frames):
+    """CodecConfig.production(intra_qstep=24): two full GOPs plus a tail GOP
+    with a P-frame (10 frames) or the I-frame alone (9). Identical vectors,
+    coefficients, I-frame reconstructions and intra payloads; the payload
+    decodes to the stored I-frame; decoded frames within +-1; each package
+    loads and decodes the other's .npz, payload keys included; the payload
+    crosses in memory both ways."""
+    frames = _clip(rng, n_frames, 64, 128)
+    port = Encoder(CodecConfig.production(intra_qstep=24), device="cpu",
+                   gop_batch=2).encode_frames(frames)
+    jvid = JaxEncoder(JaxConfig.production(intra_qstep=24),
+                      gop_batch=2).encode_frames(frames)
+    _assert_same_stream(port, jvid)
+    assert [g.num_p for g in port.gops][-1] == (1 if n_frames == 10 else 0)
+    for g in port.gops:
+        assert g.i_frame.dtype == torch.uint8 and g.i_qcoef.dtype == torch.int16
+        assert torch.equal(intra_codec.decode_intra_frame_lossy(
+            intra_codec.IntraFrameLossy(g.i_qcoef, g.i_modes, g.i_escape),
+            24), g.i_frame)
+
+    dec = Decoder(device="cpu").decode(port)
+    jdec = JaxDecoder().decode(jvid)
+    _assert_close_frames(dec, jdec)
+    i_psnr = np.mean([10 * np.log10(255**2 / np.mean(
+        (dec[i].astype(float) - frames[i]) ** 2))
+        for i in range(0, n_frames, 4)])
+    assert 20.0 < i_psnr < 60.0, i_psnr       # lossy, and not garbage
+
+    port.save_npz(tmp_path / "port.npz")
+    jvid.save_npz(str(tmp_path / "jax.npz"))
+    with np.load(tmp_path / "port.npz") as a, \
+            np.load(tmp_path / "jax.npz") as b:
+        assert sorted(a.files) == sorted(b.files)
+        assert {f"gop{len(port.gops) - 1}_{k}" for k in ("iq", "imodes",
+                                                        "iesc")} <= set(a.files)
+        for k in a.files:
+            if k != "_meta":
+                assert a[k].dtype == b[k].dtype, k
+                np.testing.assert_array_equal(a[k], b[k])
+    from_port_file = JaxVideo.load_npz(str(tmp_path / "port.npz"))
+    _assert_same_stream(port, from_port_file)
+    _assert_close_frames(JaxDecoder().decode(from_port_file), dec)
+    from_jax_file = EncodedVideo.load_npz(str(tmp_path / "jax.npz"))
+    _assert_same_stream(from_jax_file, jvid)
+    _assert_close_frames(Decoder(device="cpu").decode(from_jax_file), jdec)
+
+    _assert_same_stream(from_jax_video(jvid), jvid)
+    back = to_numpy_video(port)
+    rebuilt = JaxVideo(JaxConfig(**back["config"]), back["height"],
+                       back["width"], back["fps"], back["num_frames"],
+                       [JaxGOP(**g) for g in back["gops"]])
+    _assert_same_stream(port, rebuilt)
+    assert intra_cuda.LAUNCHES == {"intra_encode": 0, "intra_decode": 0}
+
+
+def test_decoder_strips_the_intra_payload(rng, monkeypatch):
+    """The P-frame decode never sees the lossy-intra payload: i_frame
+    already holds its reconstruction, and uploading it would cost about an
+    I-frame of host-to-device bytes per GOP."""
+    from vcs_h264_tpu_torch.models import pipeline
+    frames = _clip(rng, 6, 16, 32)
+    video = Encoder(CodecConfig.production(intra_qstep=24), device="cpu",
+                    gop_batch=1).encode_frames(frames)
+    assert all(g.i_qcoef is not None for g in video.gops)
+    seen = []
+    orig = pipeline.decode_gop_batch
+
+    def spy(gop, cfg, backend="auto"):
+        seen.append([getattr(gop, k) for k in PAYLOAD])
+        return orig(gop, cfg, backend)
+
+    monkeypatch.setattr(pipeline, "decode_gop_batch", spy)
+    assert len(Decoder(device="cpu").decode(video)) == 6
+    assert seen and all(v is None for s in seen for v in s)
 
 
 def test_all_intra_pattern_roundtrips_raw(rng):
@@ -138,7 +224,8 @@ def test_pipeline_single_gop_entry_points(rng):
 
 @pytest.mark.parametrize("kwargs", [
     dict(quant_mode="reference"), dict(gop_pattern=("I", "B", "P")),
-    dict(chroma_420=True), dict(intra_qstep=24), dict(search_luma_only=True),
+    dict(chroma_420=True), dict(with_residual=False),
+    dict(search_luma_only=True),
 ])
 def test_unported_modes_raise_in_the_entry_points(kwargs, tmp_path, rng):
     cfg = CodecConfig.production(**kwargs)
@@ -177,13 +264,14 @@ import torch
 torch.set_num_threads(1)
 from vcs_h264_tpu_torch import CodecConfig
 from vcs_h264_tpu_torch.models import Decoder, Encoder
-from vcs_h264_tpu_torch.ops import inter_cuda, motion_cuda
+from vcs_h264_tpu_torch.ops import inter_cuda, intra_cuda, motion_cuda
 rng = np.random.default_rng(0)
 frames = [rng.integers(0, 256, (16, 24, 3), dtype=np.uint8) for _ in range(6)]
-video = Encoder(CodecConfig.production(), device="cpu").encode_frames(frames)
-assert len(Decoder(device="cpu").decode(video)) == 6
+for cfg in (CodecConfig.production(), CodecConfig.production(intra_qstep=24)):
+    video = Encoder(cfg, device="cpu").encode_frames(frames)
+    assert len(Decoder(device="cpu").decode(video)) == 6
 bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "vcs_h264_tpu"))
-launches = {**motion_cuda.LAUNCHES, **inter_cuda.LAUNCHES}
+launches = {**motion_cuda.LAUNCHES, **inter_cuda.LAUNCHES, **intra_cuda.LAUNCHES}
 print(bad, launches)
 sys.exit(1 if bad or any(launches.values()) else 0)
 """

@@ -2,16 +2,19 @@
 TPU kernels rewritten as CUDA kernels for NVIDIA Hopper (sm_90a).
 
 The JAX package stays the reference. This package covers the production
-IPPP path with raw I-frames (`CodecConfig.production()`, intra_qstep 0):
-`Encoder.encode_frames` -> `EncodedVideo.save_npz` / `load_npz` ->
-`Decoder.decode`. Other modes raise NotImplementedError (ROADMAP.md).
+IPPP path (`CodecConfig.production()`) with raw I-frames (intra_qstep 0) or
+lossy intra I-frames (intra_qstep > 0, e.g. 24): `Encoder.encode_frames` ->
+`EncodedVideo.save_npz` / `load_npz` -> `Decoder.decode`, plus the intra
+codec of `models.intra_codec`. Other modes raise NotImplementedError
+(ROADMAP.md).
 
 Layout:
   config.py   CodecConfig (field for field the JAX package's)
-  ops/        blocks, dct, quant, motion (plain PyTorch), motion_cuda and
-              inter_cuda (kernel wrappers + plain versions), _build (nvcc)
+  ops/        blocks, dct, quant, motion and intra (plain PyTorch),
+              motion_cuda, inter_cuda and intra_cuda (kernel wrappers, with
+              the plain versions of K3/K4 in inter_cuda), _build (nvcc)
   csrc/       the CUDA kernels
-  models/     gop (container), pipeline, encoder, decoder
+  models/     gop (container), pipeline, intra_codec, encoder, decoder
   utils/      metrics
   interop.py  encoded streams to and from the JAX package
 """

@@ -118,8 +118,6 @@ _NOT_PORTED = (
      "with_dct=False / with_residual=False (ROADMAP M3)"),
     (lambda c: c.has_b, "B-frame GOP patterns (ROADMAP M8)"),
     (lambda c: c.chroma_420, "chroma_420 (ROADMAP M10 with kernel K7)"),
-    (lambda c: c.intra_qstep > 0,
-     "intra_qstep > 0, lossy intra I-frames (ROADMAP M4 with kernels K5+K6)"),
     (lambda c: c.search_luma_only, "search_luma_only (ROADMAP M9)"),
 )
 

@@ -1,8 +1,9 @@
 """Encoded streams across the two packages.
 
 The codec has no weights: what crosses between the JAX package and this
-one is the encoded stream (I-frames, motion vectors, coefficients). These
-functions convert it through numpy, without importing JAX.
+one is the encoded stream (I-frames, motion vectors, coefficients and the
+lossy-intra payload). These functions convert it through numpy, without
+importing JAX.
 """
 
 from __future__ import annotations
@@ -16,21 +17,26 @@ from vcs_h264_tpu_torch.config import CodecConfig, check_supported
 from vcs_h264_tpu_torch.models.gop import EncodedGOP, EncodedVideo
 
 
+# EncodedGOP field -> dtype, as both packages store it
+_DTYPES = dict(i_frame=np.uint8, mv=np.int32, residuals=np.int16,
+               i_qcoef=np.int16, i_modes=np.int8, i_escape=bool)
+
+
 def from_jax_video(video) -> EncodedVideo:
     """A JAX-package `EncodedVideo` (any array type numpy can read) -> this
     package's, with CPU tensors. Raises NotImplementedError for streams in
-    modes this package does not code (B-frame and lossy-intra payloads only
-    exist in such modes)."""
+    modes this package does not code (B-frame payloads only exist in such
+    modes)."""
     cfg = CodecConfig(**dataclasses.asdict(video.config))
     check_supported(cfg)
-    gops = []
-    for gop in video.gops:
-        res = gop.residuals
-        gops.append(EncodedGOP(
-            i_frame=torch.from_numpy(np.asarray(gop.i_frame).astype(np.uint8)),
-            mv=torch.from_numpy(np.asarray(gop.mv).astype(np.int32)),
-            residuals=None if res is None
-            else torch.from_numpy(np.asarray(res).astype(np.int16))))
+
+    def conv(v, dtype):
+        return None if v is None else torch.from_numpy(
+            np.asarray(v).astype(dtype))
+
+    gops = [EncodedGOP(**{k: conv(getattr(gop, k), dt)
+                          for k, dt in _DTYPES.items()})
+            for gop in video.gops]
     return EncodedVideo(cfg, int(video.height), int(video.width),
                         float(video.fps), int(video.num_frames), gops)
 
@@ -39,12 +45,12 @@ def to_numpy_video(video: EncodedVideo) -> dict:
     """This package's `EncodedVideo` -> plain numpy: a dict with `config`
     (the dataclass fields), `height`, `width`, `fps`, `num_frames` and
     `gops`, a list of dicts keyed like the JAX package's `EncodedGOP`
-    fields (`i_frame` uint8, `mv` int32, `residuals` int16 or None)."""
+    fields (`i_frame` uint8, `mv` int32, `residuals` int16, and the
+    lossy-intra payload `i_qcoef` int16, `i_modes` int8, `i_escape` bool;
+    None where absent)."""
     return dict(
         config=dataclasses.asdict(video.config), height=video.height,
         width=video.width, fps=video.fps, num_frames=video.num_frames,
-        gops=[dict(i_frame=g.i_frame.cpu().numpy().astype(np.uint8),
-                   mv=g.mv.cpu().numpy().astype(np.int32),
-                   residuals=None if g.residuals is None
-                   else g.residuals.cpu().numpy().astype(np.int16))
-              for g in video.gops])
+        gops=[{k: None if getattr(g, k) is None
+               else getattr(g, k).cpu().numpy().astype(dt)
+               for k, dt in _DTYPES.items()} for g in video.gops])

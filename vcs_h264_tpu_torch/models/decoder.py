@@ -2,7 +2,9 @@
 `vcs_h264_tpu/models/decoder.py:22-82`, full resolution).
 
 Full GOPs are decoded `gop_batch` at a time on the device; a tail GOP on
-its own, and an I-frame-only GOP straight from its stored frame.
+its own, and an I-frame-only GOP straight from its stored frame. With lossy
+intra the stored I-frame is already the reconstruction, so the intra
+payload is dropped before any upload: the P-frame decode never reads it.
 """
 
 from __future__ import annotations
@@ -61,6 +63,7 @@ class Decoder:
             yield from self._host_frames(out.flatten(0, 1))
 
         for gop in video.gops:
+            gop = gop.without_intra_payload()
             if gop.num_coded == cfg.gop_len and gop.num_p:
                 buf.append(gop)
                 if len(buf) >= self.gop_batch:

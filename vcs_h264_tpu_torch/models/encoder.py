@@ -3,18 +3,22 @@
 
 Frames are grouped into GOPs (frame n is an I-frame when n % gop_len == 0),
 full GOPs are encoded `gop_batch` at a time on the device, and a shorter
-tail GOP (fewer P-frames, or the I-frame alone) on its own.
+tail GOP (fewer P-frames, or the I-frame alone) on its own. With
+`intra_qstep > 0` each batch's I-frames are lossy intra-coded first (K5 on
+a GPU); the P-frames are then coded against that reconstruction, which is
+what the decoder has, and each GOP carries the intra payload.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from vcs_h264_tpu_torch.config import CodecConfig, check_supported
-from vcs_h264_tpu_torch.models import pipeline
+from vcs_h264_tpu_torch.models import intra_codec, pipeline
 from vcs_h264_tpu_torch.models.gop import EncodedGOP, EncodedVideo
 from vcs_h264_tpu_torch.ops.motion import check_backend
 
@@ -70,6 +74,18 @@ class Encoder:
         t = torch.from_numpy(np.ascontiguousarray(hwc, dtype=np.uint8))
         return t.to(self.device).movedim(-1, -3).contiguous()
 
+    def _code_i_frames(self, i_b: torch.Tensor):
+        """uint8 [B, 3, H, W] I-frames -> (the frames the P-frames reference,
+        per-GOP payload fields). Raw I-frames carry no payload; lossy intra
+        references its reconstruction and carries qcoef, modes, escape."""
+        if not self.cfg.intra_qstep:
+            return i_b, [{} for _ in range(i_b.shape[0])]
+        payload, recon = intra_codec.encode_intra_frames_lossy_batch(
+            i_b, self.cfg.intra_qstep, self.backend)
+        return recon, [dict(i_qcoef=payload.qcoef[b], i_modes=payload.modes[b],
+                            i_escape=payload.escape[b])
+                       for b in range(i_b.shape[0])]
+
     def encode_frames(self, frames: Sequence[np.ndarray], fps: float = 25.0,
                       checkpoint_dir: Optional[str] = None) -> EncodedVideo:
         """Encode BGR uint8 frames [H, W, 3] of one shape, H and W multiples
@@ -95,23 +111,26 @@ class Encoder:
 
         for start in range(0, len(full), self.gop_batch):
             idxs = full[start:start + self.gop_batch]
-            i_b = self._upload(np.stack([grouped[i][0] for i in idxs]))
+            i_b, payloads = self._code_i_frames(
+                self._upload(np.stack([grouped[i][0] for i in idxs])))
             p_b = self._upload(np.stack([grouped[i][1] for i in idxs]))
             out = pipeline.encode_gop_batch(i_b, p_b, cfg, self.backend)
             for bi, idx in enumerate(idxs):
-                encoded[idx] = out.select(bi)
+                encoded[idx] = dataclasses.replace(out.select(bi),
+                                                   **payloads[bi])
 
         for idx in tail:
             i_f, p_f = grouped[idx]
-            i_pl = self._upload(i_f)
+            i_b, payloads = self._code_i_frames(self._upload(i_f[None]))
             if p_f.shape[0] == 0:
-                encoded[idx] = EncodedGOP(
-                    i_frame=i_pl,
+                gop = EncodedGOP(
+                    i_frame=i_b[0],
                     mv=torch.zeros((0, h // bs, w // bs, 2), dtype=torch.int32,
                                    device=self.device),
                     residuals=None)
             else:
-                encoded[idx] = pipeline.encode_gop(i_pl, self._upload(p_f),
-                                                   cfg, self.backend)
+                gop = pipeline.encode_gop(i_b[0], self._upload(p_f), cfg,
+                                          self.backend)
+            encoded[idx] = dataclasses.replace(gop, **payloads[0])
         return EncodedVideo(config=cfg, height=h, width=w, fps=fps,
                             num_frames=len(frames), gops=encoded)

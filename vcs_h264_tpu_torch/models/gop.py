@@ -4,8 +4,9 @@
 The `.npz` layout is key for key and dtype for dtype the JAX package's
 (`EncodedVideo.save_npz` / `load_npz`), so each package loads the other's
 files: a `_meta` JSON string, then per GOP g `gop{g}_i` uint8 [3, H, W],
-`gop{g}_mv` int16 [P, nbh, nbw, 2] and, when the GOP has P-frames,
-`gop{g}_res` int16 [P, 3, H, W].
+`gop{g}_mv` int16 [P, nbh, nbw, 2], when the GOP has P-frames `gop{g}_res`
+int16 [P, 3, H, W], and with lossy intra I-frames the payload `gop{g}_iq`
+int16 [3, H, W], `gop{g}_imodes` int8 and `gop{g}_iesc` bool [3, H/4, W/4].
 """
 
 from __future__ import annotations
@@ -24,13 +25,33 @@ from vcs_h264_tpu_torch.config import CodecConfig, check_supported
 class EncodedGOP:
     """One encoded GOP, or a batch of them with a leading GOP axis.
 
-    i_frame:   uint8 [3, H, W]             the I-frame, stored raw
+    i_frame:   uint8 [3, H, W]             the I-frame: raw, or with lossy
+                                            intra its reconstruction, the
+                                            plane the P-frames reference
     mv:        int32 [P, nbh, nbw, 2]       (dx, dy) per block per P-frame
     residuals: int16 [P, 3, H, W] or None   quantized coefficient planes
+
+    Lossy-intra payload (None unless the config's intra_qstep > 0), which
+    decodes bit for bit to `i_frame`:
+    i_qcoef:   int16 [3, H, W]              quantized 4x4 core-transform
+                                            coefficients, block layout
+    i_modes:   int8  [3, H/4, W/4]
+    i_escape:  bool  [3, H/4, W/4]
     """
     i_frame: torch.Tensor
     mv: torch.Tensor
     residuals: Optional[torch.Tensor]
+    i_qcoef: Optional[torch.Tensor] = None
+    i_modes: Optional[torch.Tensor] = None
+    i_escape: Optional[torch.Tensor] = None
+
+    def _fields(self) -> tuple:
+        return tuple(getattr(self, f.name) for f in dataclasses.fields(self))
+
+    def _map(self, fn) -> "EncodedGOP":
+        """Apply fn to every tensor field, keeping the None ones."""
+        return EncodedGOP(*(None if v is None else fn(v)
+                            for v in self._fields()))
 
     @property
     def num_p(self) -> int:
@@ -42,22 +63,23 @@ class EncodedGOP:
 
     def select(self, b: int) -> "EncodedGOP":
         """GOP b of a batch."""
-        return EncodedGOP(self.i_frame[b], self.mv[b],
-                          None if self.residuals is None else self.residuals[b])
+        return self._map(lambda v: v[b])
 
     def to(self, device) -> "EncodedGOP":
-        return EncodedGOP(
-            self.i_frame.to(device), self.mv.to(device),
-            None if self.residuals is None else self.residuals.to(device))
+        return self._map(lambda v: v.to(device))
+
+    def without_intra_payload(self) -> "EncodedGOP":
+        """The GOP without the lossy-intra payload, which the P-frame decode
+        never reads: `i_frame` already holds its reconstruction."""
+        return dataclasses.replace(self, i_qcoef=None, i_modes=None,
+                                   i_escape=None)
 
     @staticmethod
     def stack(gops: Sequence["EncodedGOP"], device) -> "EncodedGOP":
         """Batch GOPs of one shape onto `device`."""
-        res = [g.residuals for g in gops]
-        return EncodedGOP(
-            torch.stack([g.i_frame for g in gops]).to(device),
-            torch.stack([g.mv for g in gops]).to(device),
-            None if res[0] is None else torch.stack(res).to(device))
+        fields = zip(*(g._fields() for g in gops))
+        return EncodedGOP(*(None if vs[0] is None
+                            else torch.stack(vs).to(device) for vs in fields))
 
 
 @dataclasses.dataclass
@@ -77,6 +99,10 @@ class EncodedVideo:
             arrays[f"gop{g}_mv"] = gop.mv.cpu().numpy().astype(np.int16)
             if gop.residuals is not None:
                 arrays[f"gop{g}_res"] = gop.residuals.cpu().numpy().astype(np.int16)
+            if gop.i_qcoef is not None:
+                arrays[f"gop{g}_iq"] = gop.i_qcoef.cpu().numpy().astype(np.int16)
+                arrays[f"gop{g}_imodes"] = gop.i_modes.cpu().numpy().astype(np.int8)
+                arrays[f"gop{g}_iesc"] = gop.i_escape.cpu().numpy().astype(bool)
         np.savez_compressed(path, _meta=np.array([json.dumps(
             self._meta_dict())]), **arrays)
 
@@ -111,14 +137,22 @@ class EncodedVideo:
                 intra_qstep=int(meta.get("intra_qstep", 0)),
                 chroma_420=bool(meta.get("chroma_420", 0)))
             check_supported(cfg)
+
+            def arr(key, dtype):
+                return torch.from_numpy(data[key].astype(dtype))
+
             gops = []
             for g in range(int(meta["num_gops"])):
-                res = (data[f"gop{g}_res"] if f"gop{g}_res" in data.files
-                       else None)
-                gops.append(EncodedGOP(
-                    torch.from_numpy(data[f"gop{g}_i"].astype(np.uint8)),
-                    torch.from_numpy(data[f"gop{g}_mv"].astype(np.int32)),
-                    None if res is None
-                    else torch.from_numpy(res.astype(np.int16))))
+                key = f"gop{g}_"
+                gop = EncodedGOP(
+                    arr(key + "i", np.uint8), arr(key + "mv", np.int32),
+                    arr(key + "res", np.int16) if key + "res" in data.files
+                    else None)
+                if key + "iq" in data.files:
+                    gop = dataclasses.replace(
+                        gop, i_qcoef=arr(key + "iq", np.int16),
+                        i_modes=arr(key + "imodes", np.int8),
+                        i_escape=arr(key + "iesc", bool))
+                gops.append(gop)
         return cls(cfg, int(meta["height"]), int(meta["width"]),
                    float(meta["fps"]), int(meta["num_frames"]), gops)

@@ -1,7 +1,8 @@
 """Build the CUDA kernels in `vcs_h264_tpu_torch/csrc/` with nvcc and load
 them through ctypes.
 
-At first use the `.cu` sources are compiled for Hopper (`sm_90a`) into one
+At first use each `.cu` source is compiled for Hopper (`sm_90a`) by its own
+nvcc process, all of them at once, and the objects are linked into one
 shared library with a plain C interface, placed in `vcs_h264_tpu_torch/build/`
 under a name keyed by a hash of the sources and flags, so an edited source is
 rebuilt and an unchanged one is loaded as is. Nothing here runs at import
@@ -27,8 +28,9 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD = _PKG / "build"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "--fmad=false", "-shared", "-Xcompiler", "-fPIC")
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "--fmad=false", "-Xcompiler",
+              "-fPIC")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -41,6 +43,11 @@ SIGNATURES = {
     "vcs_fused_p_encode": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     # mv, refs, coeffs, tables, frames_out, G, F, H, W, stream
     "vcs_fused_p_decode": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # planes, qcoef_out, modes_out, escape_out, recon_out, N, H, W, qstep,
+    # stream
+    "vcs_intra_encode": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # res, modes, escape, out, N, H, W, qstep, clip, stream
+    "vcs_intra_decode": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
 }
 
 _lock = threading.Lock()
@@ -77,20 +84,41 @@ def library_path() -> Path:
     return BUILD / f"libvcs_kernels_{h.hexdigest()[:16]}.so"
 
 
+def _run_all(cmds) -> None:
+    """Run the commands at once; raise with the first failure's output."""
+    procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                    stderr=subprocess.PIPE, text=True))
+             for cmd in cmds]
+    failed = []
+    for cmd, proc in procs:
+        out, err = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}"
+                          f"\n{out}\n{err}")
+    if failed:
+        raise RuntimeError("\n".join(failed))
+
+
 def _compile(out: Path) -> None:
     global build_seconds
     nvcc = find_nvcc()
     BUILD.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp),
-           *[str(s) for s in sorted(CSRC.glob("*.cu"))]]
+    objdir = BUILD / f"obj.{os.getpid()}"
+    objdir.mkdir(exist_ok=True)
+    srcs = sorted(CSRC.glob("*.cu"))
+    objs = [objdir / f"{s.stem}.o" for s in srcs]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
+    try:
+        _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(s)]
+                  for s, o in zip(srcs, objs)])
+        _run_all([[nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp),
+                   *map(str, objs)]])
+    except RuntimeError:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-            f"{proc.stdout}\n{proc.stderr}")
+        raise
+    finally:
+        shutil.rmtree(objdir, ignore_errors=True)
     os.replace(tmp, out)        # atomic: no process loads a partial file
     build_seconds = time.perf_counter() - t0
 

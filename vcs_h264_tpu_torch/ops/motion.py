@@ -208,22 +208,30 @@ def motion_search_gops(curs: torch.Tensor, refs: torch.Tensor, *, bs: int = 8,
                                   static_threshold=static_threshold)
 
 
+def source_origin(o: torch.Tensor, extent: int, bs: int) -> torch.Tensor:
+    """Block origins o along one axis -> the start `lax.dynamic_slice`
+    reads from: o + extent where o < 0, then clamped into [0, extent - bs]."""
+    return torch.where(o < 0, o + extent, o).clamp(0, extent - bs)
+
+
 def motion_compensate_gops(mv: torch.Tensor, refs: torch.Tensor, *,
                            bs: int) -> torch.Tensor:
     """Block compensation: mv [G, F, nbh, nbw, 2] (dx, dy) against per-GOP
     refs [G, C, H, W] -> [G, F, C, H, W] in the refs' dtype.
 
-    Each block's source origin is clamped into the frame, so a vector from
-    a foreign stream never reads outside it; vectors from the search never
-    need the clamp. (The JAX package's dynamic_slice gather wraps a
-    negative origin before it clamps, so the two differ only for vectors
-    no search produces.)"""
+    Each block's source origin o = bs * b + d is placed on each axis as
+    `lax.dynamic_slice` places it in the JAX package: a negative o first
+    gets the extent added, then o is clamped into [0, extent - bs]. So a
+    vector from a foreign stream never reads outside the frame; vectors
+    from the search never need either step."""
     g, f, nbh, nbw, _ = mv.shape
     _, c, h, w = refs.shape
     dev = refs.device
     offs = torch.arange(bs, device=dev)
-    i0 = (torch.arange(nbh, device=dev)[:, None] * bs + mv[..., 1]).clamp(0, h - bs)
-    j0 = (torch.arange(nbw, device=dev)[None, :] * bs + mv[..., 0]).clamp(0, w - bs)
+    i0 = source_origin(torch.arange(nbh, device=dev)[:, None] * bs
+                       + mv[..., 1], h, bs)
+    j0 = source_origin(torch.arange(nbw, device=dev)[None, :] * bs
+                       + mv[..., 0], w, bs)
     rows = i0[..., None, None] + offs[:, None]              # [G,F,nbh,nbw,bs,1]
     cols = j0[..., None, None] + offs[None, :]              # [G,F,nbh,nbw,1,bs]
     flat = (rows * w + cols).reshape(g, f, 1, -1)           # [G,F,1,nbh*nbw*bs*bs]
