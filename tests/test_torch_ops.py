@@ -47,16 +47,35 @@ def test_config_validation_matches_jax(kwargs):
 
 
 @pytest.mark.parametrize("kwargs", [
-    dict(), dict(quant_mode="rounded", signed_residual=False),
-    dict(quant_mode="rounded", with_dct=False, block_size=8),
-    dict(quant_mode="rounded", gop_pattern=("I", "B", "P")),
+    dict(quant_mode="rounded", signed_residual=False),
     dict(quant_mode="rounded", chroma_420=True),
-    dict(quant_mode="rounded", with_residual=False),
     dict(quant_mode="rounded", search_luma_only=True),
 ])
 def test_unported_modes_raise(kwargs):
     with pytest.raises(NotImplementedError):
         check_supported(CodecConfig(**kwargs))
+
+
+@pytest.mark.parametrize("kwargs", [
+    dict(), dict(quant_mode="rounded", with_dct=False, block_size=8),
+    dict(quant_mode="rounded", gop_pattern=("I", "B", "P")),
+    dict(quant_mode="rounded", with_residual=False),
+])
+def test_ported_modes_are_supported(kwargs, rng, tmp_path):
+    """Reference mode, no DCT, B patterns and no residual: supported, and a
+    tiny encode -> .npz -> decode gives every frame back (a full GOP and
+    an I-frame-only tail)."""
+    from vcs_h264_tpu_torch.models import Decoder, EncodedVideo, Encoder
+    cfg = CodecConfig(**kwargs)
+    check_supported(cfg)
+    frames = [rng.integers(0, 256, (16, 16, 3), dtype=np.uint8)
+              for _ in range(cfg.gop_len + 1)]
+    Encoder(cfg, device="cpu").encode_frames(frames).save_npz(
+        str(tmp_path / "v.npz"))
+    out = Decoder(device="cpu").decode(EncodedVideo.load_npz(
+        str(tmp_path / "v.npz")))
+    assert len(out) == len(frames)
+    assert all(f.shape == (16, 16, 3) and f.dtype == np.uint8 for f in out)
 
 
 def test_production_slice_is_supported():

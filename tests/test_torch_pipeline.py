@@ -2,7 +2,9 @@
 Encoder.encode_frames -> .npz -> Decoder.decode with
 CodecConfig.production(), raw I-frames and lossy intra I-frames
 (intra_qstep=24), each package's stream decoded by the other, and the
-port's isolation from JAX and from the GPU when run on the CPU."""
+port's isolation from JAX and from the GPU when run on the CPU (production,
+reference mode and B-frames). Reference mode and B-frames against the JAX
+package: tests/test_torch_reference.py, tests/test_torch_bframes.py."""
 
 import os
 import subprocess
@@ -102,7 +104,7 @@ def test_slice_matches_jax(rng, tmp_path, n_frames):
     from_jax_file = EncodedVideo.load_npz(str(tmp_path / "jax.npz"))
     _assert_same_stream(from_jax_file, jvid)
     _assert_close_frames(Decoder(device="cpu").decode(from_jax_file), jdec)
-    assert motion_cuda.LAUNCHES == {"sad_search": 0}
+    assert motion_cuda.LAUNCHES == {"sad_search": 0, "compensate": 0}
     assert inter_cuda.LAUNCHES == {"fused_p_encode": 0, "fused_p_decode": 0}
 
 
@@ -224,8 +226,24 @@ def test_pipeline_single_gop_entry_points(rng):
 
 @pytest.mark.parametrize("kwargs", [
     dict(quant_mode="reference"), dict(gop_pattern=("I", "B", "P")),
-    dict(chroma_420=True), dict(with_residual=False),
-    dict(search_luma_only=True),
+    dict(with_residual=False),
+])
+def test_now_ported_modes_run_in_the_entry_points(kwargs, tmp_path, rng):
+    """Modes the entry points refused before reference mode and B-frames
+    were ported: Encoder -> .npz -> Decoder gives every frame back."""
+    cfg = CodecConfig.production(**kwargs)
+    frames = _clip(rng, cfg.gop_len + 2, 16, 16)
+    Encoder(cfg, device="cpu").encode_frames(frames).save_npz(
+        str(tmp_path / "v.npz"))
+    loaded = EncodedVideo.load_npz(str(tmp_path / "v.npz"))
+    assert loaded.config == cfg
+    out = Decoder(device="cpu").decode(loaded)
+    assert len(out) == len(frames)
+    np.testing.assert_array_equal(out[0], frames[0])
+
+
+@pytest.mark.parametrize("kwargs", [
+    dict(chroma_420=True), dict(search_luma_only=True),
 ])
 def test_unported_modes_raise_in_the_entry_points(kwargs, tmp_path, rng):
     cfg = CodecConfig.production(**kwargs)
@@ -266,10 +284,11 @@ from vcs_h264_tpu_torch import CodecConfig
 from vcs_h264_tpu_torch.models import Decoder, Encoder
 from vcs_h264_tpu_torch.ops import inter_cuda, intra_cuda, motion_cuda
 rng = np.random.default_rng(0)
-frames = [rng.integers(0, 256, (16, 24, 3), dtype=np.uint8) for _ in range(6)]
-for cfg in (CodecConfig.production(), CodecConfig.production(intra_qstep=24)):
+frames = [rng.integers(0, 256, (16, 24, 3), dtype=np.uint8) for _ in range(8)]
+for cfg in (CodecConfig.production(), CodecConfig.production(intra_qstep=24),
+            CodecConfig(), CodecConfig.bframes()):
     video = Encoder(cfg, device="cpu").encode_frames(frames)
-    assert len(Decoder(device="cpu").decode(video)) == 6
+    assert len(Decoder(device="cpu").decode(video)) == 8
 bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "vcs_h264_tpu"))
 launches = {**motion_cuda.LAUNCHES, **inter_cuda.LAUNCHES, **intra_cuda.LAUNCHES}
 print(bad, launches)

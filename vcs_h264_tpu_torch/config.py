@@ -110,13 +110,8 @@ class CodecConfig:
 
 # What the port codes so far, and the ROADMAP.md item that ports the rest.
 _NOT_PORTED = (
-    (lambda c: c.quant_mode != "rounded",
-     "quant_mode='reference' (ROADMAP Queue 1, M3)"),
     (lambda c: not c.signed_residual,
      "signed_residual=False, the legacy v3 container (ROADMAP M6)"),
-    (lambda c: not (c.with_dct and c.with_residual),
-     "with_dct=False / with_residual=False (ROADMAP M3)"),
-    (lambda c: c.has_b, "B-frame GOP patterns (ROADMAP M8)"),
     (lambda c: c.chroma_420, "chroma_420 (ROADMAP M10 with kernel K7)"),
     (lambda c: c.search_luma_only, "search_luma_only (ROADMAP M9)"),
 )

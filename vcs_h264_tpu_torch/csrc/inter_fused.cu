@@ -11,7 +11,7 @@
 // with the block's vector (dx, dy) and the compensated source
 // ref[g, c, i0 + y, j0 + x], where o = 8 bi + dy becomes o + H if negative
 // and i0 = clamp(o, 0, H - 8), likewise j0 (lax.dynamic_slice's placement,
-// as the plain gather computes it):
+// as the plain gather and K1 compute it: block_origin.cuh):
 //   encode: resid = cur - ref_comp (BGR) -> signed RCT
 //           y = .299 r + .587 g + .114 b, cr = (r - y) .713, cb = (b - y) .564
 //           -> D X D^T -> / Q (Y table on y, C table on cr, cb)
@@ -36,6 +36,8 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "block_origin.cuh"
+
 namespace {
 
 constexpr int kBs = 8;
@@ -55,20 +57,13 @@ __device__ __forceinline__ void load_tables(Tables& t, const float* __restrict__
   }
 }
 
-// Start of a block's source along one axis, as lax.dynamic_slice places it:
-// a negative origin gets the extent added, then it is clamped into the frame.
-__device__ __forceinline__ int place(int o, int extent) {
-  if (o < 0) o += extent;
-  return min(max(o, 0), extent - kBs);
-}
-
 // Start of the compensated source block.
 __device__ __forceinline__ void source_origin(const int32_t* __restrict__ mv, size_t gf, int nbh,
                                               int nbw, int bi, int bj, int H, int W,
                                               int& i0, int& j0) {
   const int32_t* m = mv + ((gf * nbh + bi) * nbw + bj) * 2;
-  i0 = place(bi * kBs + m[1], H);
-  j0 = place(bj * kBs + m[0], W);
+  i0 = place_origin(static_cast<long long>(bi) * kBs + m[1], H, kBs);
+  j0 = place_origin(static_cast<long long>(bj) * kBs + m[0], W, kBs);
 }
 
 // grid (ceil(nbw / 4), nbh, G*F), block (64, 4)

@@ -1,9 +1,9 @@
 """Encoded streams across the two packages.
 
 The codec has no weights: what crosses between the JAX package and this
-one is the encoded stream (I-frames, motion vectors, coefficients and the
-lossy-intra payload). These functions convert it through numpy, without
-importing JAX.
+one is the encoded stream (I-frames, motion vectors, residuals, the
+B-frame vectors, modes and residuals, and the lossy-intra payload). These
+functions convert it through numpy, without importing JAX.
 """
 
 from __future__ import annotations
@@ -14,19 +14,23 @@ import numpy as np
 import torch
 
 from vcs_h264_tpu_torch.config import CodecConfig, check_supported
-from vcs_h264_tpu_torch.models.gop import EncodedGOP, EncodedVideo
+from vcs_h264_tpu_torch.models.gop import (EncodedGOP, EncodedVideo,
+                                            residual_dtype)
 
 
-# EncodedGOP field -> dtype, as both packages store it
-_DTYPES = dict(i_frame=np.uint8, mv=np.int32, residuals=np.int16,
-               i_qcoef=np.int16, i_modes=np.int8, i_escape=bool)
+def _dtypes(cfg: CodecConfig) -> dict:
+    """EncodedGOP field -> dtype, as both packages store it; the residuals'
+    follows the mode (`models.gop.residual_dtype`)."""
+    res = residual_dtype(cfg)
+    return dict(i_frame=np.uint8, mv=np.int32, residuals=res, b_mv=np.int32,
+                b_mode=np.int8, b_residuals=res, i_qcoef=np.int16,
+                i_modes=np.int8, i_escape=bool)
 
 
 def from_jax_video(video) -> EncodedVideo:
     """A JAX-package `EncodedVideo` (any array type numpy can read) -> this
     package's, with CPU tensors. Raises NotImplementedError for streams in
-    modes this package does not code (B-frame payloads only exist in such
-    modes)."""
+    modes this package does not code."""
     cfg = CodecConfig(**dataclasses.asdict(video.config))
     check_supported(cfg)
 
@@ -35,7 +39,7 @@ def from_jax_video(video) -> EncodedVideo:
             np.asarray(v).astype(dtype))
 
     gops = [EncodedGOP(**{k: conv(getattr(gop, k), dt)
-                          for k, dt in _DTYPES.items()})
+                          for k, dt in _dtypes(cfg).items()})
             for gop in video.gops]
     return EncodedVideo(cfg, int(video.height), int(video.width),
                         float(video.fps), int(video.num_frames), gops)
@@ -45,12 +49,14 @@ def to_numpy_video(video: EncodedVideo) -> dict:
     """This package's `EncodedVideo` -> plain numpy: a dict with `config`
     (the dataclass fields), `height`, `width`, `fps`, `num_frames` and
     `gops`, a list of dicts keyed like the JAX package's `EncodedGOP`
-    fields (`i_frame` uint8, `mv` int32, `residuals` int16, and the
-    lossy-intra payload `i_qcoef` int16, `i_modes` int8, `i_escape` bool;
-    None where absent)."""
+    fields (`i_frame` uint8, `mv` int32, `residuals` in the mode's dtype,
+    the B-frame fields `b_mv` int32, `b_mode` int8 and `b_residuals`, and
+    the lossy-intra payload `i_qcoef` int16, `i_modes` int8, `i_escape`
+    bool; None where absent)."""
+    dtypes = _dtypes(video.config)
     return dict(
         config=dataclasses.asdict(video.config), height=video.height,
         width=video.width, fps=video.fps, num_frames=video.num_frames,
         gops=[{k: None if getattr(g, k) is None
                else getattr(g, k).cpu().numpy().astype(dt)
-               for k, dt in _DTYPES.items()} for g in video.gops])
+               for k, dt in dtypes.items()} for g in video.gops])

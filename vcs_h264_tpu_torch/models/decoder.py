@@ -1,8 +1,10 @@
 """Host-side decoder orchestration (counterpart of
 `vcs_h264_tpu/models/decoder.py:22-82`, full resolution).
 
-Full GOPs are decoded `gop_batch` at a time on the device; a tail GOP on
-its own, and an I-frame-only GOP straight from its stored frame. With lossy
+Full GOPs (I + P + B frames as many as the pattern has) are decoded
+`gop_batch` at a time on the device; a tail GOP on its own, and an
+I-frame-only GOP straight from its stored frame. A GOP without residuals
+(with_residual=False) decodes from the compensation alone. With lossy
 intra the stored I-frame is already the reconstruction, so the intra
 payload is dropped before any upload: the P-frame decode never reads it.
 """

@@ -3,7 +3,8 @@
 
 Frames are grouped into GOPs (frame n is an I-frame when n % gop_len == 0),
 full GOPs are encoded `gop_batch` at a time on the device, and a shorter
-tail GOP (fewer P-frames, or the I-frame alone) on its own. With
+tail GOP (fewer P-frames, or the I-frame alone) on its own. Under a B
+pattern a full GOP codes its B-frames; a tail GOP is coded all-P. With
 `intra_qstep > 0` each batch's I-frames are lossy intra-coded first (K5 on
 a GPU); the P-frames are then coded against that reconstruction, which is
 what the decoder has, and each GOP carries the intra payload.
@@ -102,8 +103,9 @@ class Encoder:
         if h % bs or w % bs:
             raise ValueError(f"frame {h}x{w} must be a multiple of block {bs}")
         grouped = group_into_gops(frames, cfg.gop_len)
-        # full GOPs are batched; a shorter tail GOP, or any GOP with no
-        # P-frame (an all-I pattern), is coded on its own
+        # full GOPs are batched (with their B-frames under a B pattern); a
+        # shorter tail GOP, coded all-P, or any GOP with no P-frame (an
+        # all-I pattern), is coded on its own
         is_full = [p.shape[0] == cfg.gop_len - 1 > 0 for _, p in grouped]
         full = [i for i, f in enumerate(is_full) if f]
         tail = [i for i, f in enumerate(is_full) if not f]

@@ -4,9 +4,12 @@
 The `.npz` layout is key for key and dtype for dtype the JAX package's
 (`EncodedVideo.save_npz` / `load_npz`), so each package loads the other's
 files: a `_meta` JSON string, then per GOP g `gop{g}_i` uint8 [3, H, W],
-`gop{g}_mv` int16 [P, nbh, nbw, 2], when the GOP has P-frames `gop{g}_res`
-int16 [P, 3, H, W], and with lossy intra I-frames the payload `gop{g}_iq`
-int16 [3, H, W], `gop{g}_imodes` int8 and `gop{g}_iesc` bool [3, H/4, W/4].
+`gop{g}_mv` int16 [P, nbh, nbw, 2], when the GOP codes residuals `gop{g}_res`
+[P, 3, H, W] in the mode's residual dtype (`residual_dtype`), with B-frames
+`gop{g}_bmv` int16 [NB, 2, nbh, nbw, 2], `gop{g}_bmode` int8 [NB, nbh, nbw]
+and `gop{g}_bres` [NB, 3, H, W], and with lossy intra I-frames the payload
+`gop{g}_iq` int16 [3, H, W], `gop{g}_imodes` int8 and `gop{g}_iesc` bool
+[3, H/4, W/4].
 """
 
 from __future__ import annotations
@@ -21,15 +24,32 @@ import torch
 from vcs_h264_tpu_torch.config import CodecConfig, check_supported
 
 
+def residual_dtype(cfg: CodecConfig) -> np.dtype:
+    """The stored residuals' dtype: float32 unrounded coefficients in
+    reference mode, int16 rounded coefficients, uint8 wrap residuals without
+    a DCT."""
+    if not cfg.with_dct:
+        return np.dtype(np.uint8)
+    return np.dtype(np.int16 if cfg.quant_mode == "rounded" else np.float32)
+
+
 @dataclasses.dataclass
 class EncodedGOP:
     """One encoded GOP, or a batch of them with a leading GOP axis.
 
     i_frame:   uint8 [3, H, W]             the I-frame: raw, or with lossy
                                             intra its reconstruction, the
-                                            plane the P-frames reference
+                                            plane the P/B-frames reference
     mv:        int32 [P, nbh, nbw, 2]       (dx, dy) per block per P-frame
-    residuals: int16 [P, 3, H, W] or None   quantized coefficient planes
+    residuals: [P, 3, H, W] or None         in the mode's residual dtype:
+                                            float32 coefficients (reference
+                                            mode), int16 (rounded), uint8
+                                            wrap residuals (no DCT)
+
+    B-frame fields (None unless the GOP is a full GOP of a B pattern):
+    b_mv:        int32 [NB, 2, nbh, nbw, 2]  forward and backward vectors
+    b_mode:      int8  [NB, nbh, nbw]        0 forward, 1 backward, 2 average
+    b_residuals: as `residuals`, [NB, 3, H, W], or None
 
     Lossy-intra payload (None unless the config's intra_qstep > 0), which
     decodes bit for bit to `i_frame`:
@@ -41,6 +61,9 @@ class EncodedGOP:
     i_frame: torch.Tensor
     mv: torch.Tensor
     residuals: Optional[torch.Tensor]
+    b_mv: Optional[torch.Tensor] = None
+    b_mode: Optional[torch.Tensor] = None
+    b_residuals: Optional[torch.Tensor] = None
     i_qcoef: Optional[torch.Tensor] = None
     i_modes: Optional[torch.Tensor] = None
     i_escape: Optional[torch.Tensor] = None
@@ -58,8 +81,13 @@ class EncodedGOP:
         return self.mv.shape[-4]
 
     @property
+    def num_b(self) -> int:
+        return 0 if self.b_mv is None else self.b_mv.shape[-5]
+
+    @property
     def num_coded(self) -> int:
-        return 1 + self.num_p
+        """Frames the GOP codes: I + P + B."""
+        return 1 + self.num_p + self.num_b
 
     def select(self, b: int) -> "EncodedGOP":
         """GOP b of a batch."""
@@ -93,12 +121,21 @@ class EncodedVideo:
     gops: List[EncodedGOP]
 
     def save_npz(self, path: str) -> None:
+        res_dt = residual_dtype(self.config)
         arrays = {}
+
+        def put(key, v, dtype):
+            if v is not None:
+                arrays[key] = v.cpu().numpy().astype(dtype, copy=False)
+
         for g, gop in enumerate(self.gops):
             arrays[f"gop{g}_i"] = gop.i_frame.cpu().numpy().astype(np.uint8)
             arrays[f"gop{g}_mv"] = gop.mv.cpu().numpy().astype(np.int16)
-            if gop.residuals is not None:
-                arrays[f"gop{g}_res"] = gop.residuals.cpu().numpy().astype(np.int16)
+            put(f"gop{g}_res", gop.residuals, res_dt)
+            if gop.b_mv is not None:
+                put(f"gop{g}_bmv", gop.b_mv, np.int16)
+                put(f"gop{g}_bmode", gop.b_mode, np.int8)
+                put(f"gop{g}_bres", gop.b_residuals, res_dt)
             if gop.i_qcoef is not None:
                 arrays[f"gop{g}_iq"] = gop.i_qcoef.cpu().numpy().astype(np.int16)
                 arrays[f"gop{g}_imodes"] = gop.i_modes.cpu().numpy().astype(np.int8)
@@ -138,16 +175,25 @@ class EncodedVideo:
                 chroma_420=bool(meta.get("chroma_420", 0)))
             check_supported(cfg)
 
+            res_dt = residual_dtype(cfg)
+
             def arr(key, dtype):
                 return torch.from_numpy(data[key].astype(dtype))
+
+            def opt(key, dtype):
+                return arr(key, dtype) if key in data.files else None
 
             gops = []
             for g in range(int(meta["num_gops"])):
                 key = f"gop{g}_"
                 gop = EncodedGOP(
                     arr(key + "i", np.uint8), arr(key + "mv", np.int32),
-                    arr(key + "res", np.int16) if key + "res" in data.files
-                    else None)
+                    opt(key + "res", res_dt))
+                if key + "bmv" in data.files:
+                    gop = dataclasses.replace(
+                        gop, b_mv=arr(key + "bmv", np.int32),
+                        b_mode=arr(key + "bmode", np.int8),
+                        b_residuals=opt(key + "bres", res_dt))
                 if key + "iq" in data.files:
                     gop = dataclasses.replace(
                         gop, i_qcoef=arr(key + "iq", np.int16),

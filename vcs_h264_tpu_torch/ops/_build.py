@@ -4,9 +4,10 @@ them through ctypes.
 At first use each `.cu` source is compiled for Hopper (`sm_90a`) by its own
 nvcc process, all of them at once, and the objects are linked into one
 shared library with a plain C interface, placed in `vcs_h264_tpu_torch/build/`
-under a name keyed by a hash of the sources and flags, so an edited source is
-rebuilt and an unchanged one is loaded as is. Nothing here runs at import
-time; a missing nvcc or a failed build raises.
+under a name keyed by a hash of the sources (the `.cuh` headers included)
+and flags, so an edited source is rebuilt and an unchanged one is loaded as
+is. Nothing here runs at import time; a missing nvcc or a failed build
+raises.
 
 `--fmad=false` keeps nvcc from contracting a*b+c into one fused multiply-add:
 the kernels' float arithmetic then rounds after every operation, as the
@@ -48,6 +49,8 @@ SIGNATURES = {
     "vcs_intra_encode": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     # res, modes, escape, out, N, H, W, qstep, clip, stream
     "vcs_intra_decode": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # mv, refs, out, G, F, C, H, W, bs, stream
+    "vcs_compensate": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
 }
 
 _lock = threading.Lock()

@@ -2,8 +2,13 @@
 (counterpart of `vcs_h264_tpu/ops/dct.py`).
 
 The matrix is computed in float64 on the host and rounded once to float32,
-as the JAX package does; the products run in full float32 (callers on a GPU
-keep TF32 off, which is PyTorch's default for matmul).
+as the JAX package does. The products are written out as eight multiplies
+and adds per pass, each rounded to float32, in the order the K3/K4 kernels
+sum them (`csrc/inter_fused.cu`), instead of `torch.matmul`: a float32
+matmul on a GPU may run in TF32 (`torch.backends.cuda.matmul.allow_tf32`,
+`torch.set_float32_matmul_precision`), which keeps about three decimal
+digits, and reference mode rounds IDCT outputs that sit within ~1e-4 of an
+integer. The result does not depend on either setting.
 """
 
 from __future__ import annotations
@@ -29,13 +34,29 @@ def dct_matrix(n: int, device=None) -> torch.Tensor:
     return torch.tensor(dct_matrix_np(n), dtype=torch.float32, device=device)
 
 
+def _left(m: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """m @ x over the last two axes: sum_j m[i, j] x[..., j, k], j in order."""
+    acc = m[:, 0, None] * x[..., 0:1, :]
+    for j in range(1, m.shape[1]):
+        acc = acc + m[:, j, None] * x[..., j:j + 1, :]
+    return acc
+
+
+def _right(x: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
+    """x @ m over the last two axes: sum_k x[..., i, k] m[k, l], k in order."""
+    acc = x[..., 0:1] * m[0]
+    for k in range(1, m.shape[0]):
+        acc = acc + x[..., k:k + 1] * m[k]
+    return acc
+
+
 def dct2_blocks(blocks: torch.Tensor) -> torch.Tensor:
     """Forward DCT D @ B @ D^T on [..., bs, bs] float32 blocks."""
     d = dct_matrix(blocks.shape[-1], blocks.device)
-    return torch.matmul(torch.matmul(d, blocks), d.T)
+    return _right(_left(d, blocks), d.T)
 
 
 def idct2_blocks(blocks: torch.Tensor) -> torch.Tensor:
     """Inverse DCT D^T @ B @ D on [..., bs, bs] float32 blocks."""
     d = dct_matrix(blocks.shape[-1], blocks.device)
-    return torch.matmul(torch.matmul(d.T, blocks), d)
+    return _right(_left(d.T, blocks), d)

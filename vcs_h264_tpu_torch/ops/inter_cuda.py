@@ -74,7 +74,7 @@ def dct_decompress_residual_signed(coeffs: torch.Tensor, qf: float) -> torch.Ten
 def encode_p_coeffs_plain(mv, refs, curs, qf: float) -> torch.Tensor:
     """Plain K3: round(DCT(RCT(curs - compensate(refs, mv))) / Q) as int16.
     mv [G, F, nbh, nbw, 2], refs [G, 3, H, W], curs [G, F, 3, H, W]."""
-    pred = motion_compensate_gops(mv, refs, bs=BS)
+    pred = motion_compensate_gops(mv, refs, bs=BS, backend="plain")
     return dct_compress_residual_signed(
         curs.to(torch.int32) - pred.to(torch.int32), qf)
 
@@ -82,7 +82,7 @@ def encode_p_coeffs_plain(mv, refs, curs, qf: float) -> torch.Tensor:
 def decode_p_frames_plain(mv, refs, coeffs, qf: float) -> torch.Tensor:
     """Plain K4: clip(compensate(refs, mv) + residual(coeffs), 0, 255) as
     uint8 [G, F, 3, H, W]."""
-    pred = motion_compensate_gops(mv, refs, bs=BS)
+    pred = motion_compensate_gops(mv, refs, bs=BS, backend="plain")
     out = pred.to(torch.int32) + dct_decompress_residual_signed(coeffs, qf)
     return out.clamp_(0, 255).to(torch.uint8)
 

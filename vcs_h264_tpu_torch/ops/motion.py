@@ -14,11 +14,12 @@ reference:
     <= static_threshold gets the zero vector;
   * vectors are (dx, dy), dx along the column (W) axis.
 
-`motion_search_gops` sends a CUDA tensor to the hand-written kernel
-(`ops/motion_cuda.py`, K2) and a CPU tensor to the plain PyTorch version
-below; the plain version runs on a CUDA tensor only when asked for by
-name (`backend="plain"`), which is how the kernel is held against it on
-the card.
+`motion_search_gops` and `motion_compensate_gops` send a CUDA tensor to
+the hand-written kernels (`ops/motion_cuda.py`: K2 search, K1
+compensation) and a CPU tensor to the plain PyTorch versions below; a plain
+version runs on a CUDA tensor only when asked for by name
+(`backend="plain"`), which is how the kernels are held against it on the
+card.
 
 Frames are planar: [..., C, H, W].
 """
@@ -214,10 +215,11 @@ def source_origin(o: torch.Tensor, extent: int, bs: int) -> torch.Tensor:
     return torch.where(o < 0, o + extent, o).clamp(0, extent - bs)
 
 
-def motion_compensate_gops(mv: torch.Tensor, refs: torch.Tensor, *,
-                           bs: int) -> torch.Tensor:
-    """Block compensation: mv [G, F, nbh, nbw, 2] (dx, dy) against per-GOP
-    refs [G, C, H, W] -> [G, F, C, H, W] in the refs' dtype.
+def motion_compensate_plain(mv: torch.Tensor, refs: torch.Tensor, *,
+                            bs: int) -> torch.Tensor:
+    """The plain PyTorch compensation, on any device: mv [G, F, nbh, nbw, 2]
+    (dx, dy) against per-GOP refs [G, C, H, W] -> [G, F, C, H, W] in the
+    refs' dtype.
 
     Each block's source origin o = bs * b + d is placed on each axis as
     `lax.dynamic_slice` places it in the JAX package: a negative o first
@@ -239,6 +241,43 @@ def motion_compensate_gops(mv: torch.Tensor, refs: torch.Tensor, *,
     blocks = torch.gather(src, 3, flat.expand(g, f, c, flat.shape[-1]))
     blocks = blocks.reshape(g, f, c, nbh, nbw, bs, bs)
     return blocks.transpose(-3, -2).reshape(g, f, c, h, w)
+
+
+def motion_compensate_gops(mv: torch.Tensor, refs: torch.Tensor, *, bs: int,
+                           backend: str = "auto") -> torch.Tensor:
+    """Block compensation: mv [G, F, nbh, nbw, 2] (dx, dy) against per-GOP
+    refs [G, C, H, W] -> [G, F, C, H, W].
+
+    backend "auto": the K1 kernel on a CUDA tensor (uint8 refs, uint8 out),
+    the plain version on a CPU tensor (the refs' dtype). backend "plain":
+    the plain version on either. Any vector is accepted; see
+    `motion_compensate_plain` for where its source block is read."""
+    check_backend(backend)
+    if mv.ndim != 5 or refs.ndim != 4 or mv.shape[0] != refs.shape[0] \
+            or mv.shape[-1] != 2 or refs.shape[-2] % bs \
+            or refs.shape[-1] % bs or tuple(mv.shape[2:4]) != (
+                refs.shape[-2] // bs, refs.shape[-1] // bs):
+        raise ValueError(f"mv {tuple(mv.shape)} / refs {tuple(refs.shape)} "
+                         f"must be [G, F, H/{bs}, W/{bs}, 2] / [G, C, H, W]")
+    if backend == "plain" or refs.device.type == "cpu":
+        return motion_compensate_plain(mv, refs, bs=bs)
+    from vcs_h264_tpu_torch.ops import motion_cuda
+    return motion_cuda.compensate(mv.contiguous(), refs.contiguous(), bs=bs)
+
+
+def residuals_wrap(cur: torch.Tensor, recon: torch.Tensor) -> torch.Tensor:
+    """uint8-wrapping residual (cur - recon) & 255, computed in int32."""
+    return (cur.to(torch.int32) - recon.to(torch.int32)) & 255
+
+
+def reconstruct_wrap(recon: torch.Tensor, res: torch.Tensor) -> torch.Tensor:
+    """uint8-wrapping add-back (recon + res) & 255, computed in int32."""
+    return (recon.to(torch.int32) + res.to(torch.int32)) & 255
+
+
+def num_static_blocks(mv: torch.Tensor) -> torch.Tensor:
+    """Count of zero motion vectors."""
+    return (mv == 0).all(dim=-1).sum()
 
 
 def check_backend(backend: str) -> None:
