@@ -2,6 +2,7 @@
 """Smoke run of vcs_h264_tpu_torch on one NVIDIA GPU (Hopper, sm_90a).
 
     python3 chip_smoke.py [--seed N]
+    python3 chip_smoke.py --profile     # device time by kernel, per path
 
 Run from the root of a checkout: it builds the CUDA kernels from
 `vcs_h264_tpu_torch/csrc/` with nvcc and imports nothing of JAX or of the JAX
@@ -33,8 +34,22 @@ package. Phases, each of which exits nonzero on failure:
      f. K1 at the main shapes: the clip's 8 GOPs of 3 P-frames at 1280x720
         on the searched vectors, and the B shape (4 GOPs x 3 B-frames, one
         frame each): identical;
+     g. the bare-plane kernels (the C = 1 case of K3/K4 on a luma plane,
+        motion cells of 8 px; K7 on two chroma planes, cells of 4 px) at
+        edge shapes: planes of 8x8, one strip row, widths that are not
+        multiples of 32; vectors that are odd, negative and up to three
+        extents outside every edge; all-zero vector rows: identical to the
+        plain versions. K2 at C = 1 at an edge shape: vectors identical;
+     h. the 4:2:0 shapes, G=8, F=3: K2 at C = 1 on the clip's 720x1280 luma
+        (threshold 2000 // 3), plane_encode / plane_decode on it,
+        c420_encode / c420_decode on the 2x360x640 chroma planes with the
+        floor-halved vectors: identical to the plain versions; K5/K6 on the
+        16 chroma I planes of 360x640: identical;
      with median times of kernel and plain version (CUDA events, after
-     warm-up);
+     warm-up), each kernel's bound on this card (the larger of its bytes
+     over 3.35 TB/s and its operations over 67 TFLOP/s, from this run's
+     shapes and data) and, where one PyTorch call computes the same
+     function, that call's time;
   4. the main paths through the user entry points, each with the launch
      counts set to 0 just before its kernel run and read just after, each
      kernel run held against the plain path's run:
@@ -57,9 +72,23 @@ package. Phases, each of which exits nonzero on failure:
         gop_pattern=IBPBPBP), on the same clip (4 full GOPs and a 6-frame
         tail coded all-P): K1-K6 launched, I-frame fields identical to the
         plain path's, I-, P- and B-frame PSNR within 0.01 dB of it;
+     e. 4:2:0, CodecConfig.production(chroma_420=True, intra_qstep=24), on
+        the same clip: K2, the bare-plane K3/K4, K7, K5 and K6 launched and
+        neither full-resolution K3 nor K4; planes, vectors and payloads
+        identical to the plain path's, PSNR per frame kind within 0.01 dB;
+     f. 4:2:0 with B-frames, the same with gop_pattern=IBPBPBP: K1 launched
+        too;
+     g. the luma-only search, CodecConfig.production(intra_qstep=24,
+        search_luma_only=True): K2 (at C = 1) and the full-resolution
+        K3-K6;
      fps of a-c as medians of three interleaved runs (decoding the stream
-     from host memory; the .npz save and load are not timed), of d from
+     from host memory; the .npz save and load are not timed), of d-g from
      one run each.
+
+With --profile the script instead runs each path once on the kernels under
+torch.profiler (encode, decode from host memory and the intra decode of the
+payloads; no .npz), prints the host-clock time of the window, the device
+time in it and its largest rows, and stops without the records below.
 
 The last two lines of standard output are the kernels' JSON record and the
 device record {"ok": true, "device": {...}}; without a CUDA device the script
@@ -84,6 +113,15 @@ CLIP_FRAMES = 34
 PSNR_TOL_DB = 0.01
 QSTEP = 24
 PAYLOAD = ("i_qcoef", "i_modes", "i_escape")
+MEM_BYTES_PER_S = 3.35e12     # H100 SXM device memory (data sheet)
+ALU_OPS_PER_S = 67e12         # H100 SXM float32 outside the tensor cores,
+                              # taken for the integer ALU work as well
+# Arithmetic per sample, counted from the algorithms: two 8-point passes of
+# 8 multiplies and 8 adds each, the quantiser, and for K3/K4 the RCT; the
+# 4x4 intra encode tries 9 predictors (about 3 operations per predicted
+# sample and 3 per SAD term) and runs the core transform forwards and back,
+# the decode one predictor and the inverse.
+DCT_OPS, RCT_OPS, INTRA_ENC_OPS, INTRA_DEC_OPS = 34, 4, 94, 22
 IBPBPBP = ("I", "B", "P", "B", "P", "B", "P")
 B_GOPS = 4                # full IBPBPBP GOPs in the clip
 
@@ -140,6 +178,50 @@ def time_ms(fn, reps: int, warmup: int = 2) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return float(np.median(times))
+
+
+def bound(n_bytes: float, n_ops: float) -> dict:
+    """The least time the card could take: the larger of the bytes over the
+    memory rate and the operations over the ALU rate."""
+    t_bytes = n_bytes / MEM_BYTES_PER_S * 1e3
+    t_ops = n_ops / ALU_OPS_PER_S * 1e3
+    return dict(bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations")
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def coded_bound(mv, refs, data, out, rct: bool) -> dict:
+    """K3/K4, their bare-plane case and K7: every operand once, and the
+    transform's arithmetic on every sample."""
+    return bound(nbytes(mv, refs, data, out),
+                 data.numel() * (DCT_OPS + (RCT_OPS if rct else 0)))
+
+
+def search_bound(curs, refs, mv, search) -> dict:
+    """K2: frames in, vectors out; per block the static SAD, and for the
+    blocks this run's data does not declare static the SAD of every valid
+    candidate, 3 operations per sample and candidate."""
+    from vcs_h264_tpu_torch.ops import motion
+    g, f, c, h, w = curs.shape
+    bs = search["bs"]
+    plan = motion.make_plan(h, w, bs, search["reach"], search["step"])
+    valid = (plan.valid_i.sum(1)[:, None] * plan.valid_j.sum(1)[None, :])
+    static = (motion.static_sad(curs, refs[:, None], bs)
+              <= search["static_threshold"]).cpu().numpy()
+    cands = 1 + (~static) * valid[None, None]
+    return bound(nbytes(curs, refs, mv), 3.0 * c * bs * bs * cands.sum())
+
+
+def print_times(results: dict, shape: str, card: str) -> None:
+    for name, r in results.items():
+        lib = ("" if r["library_ms"] is None
+               else f", one PyTorch call {r['library_ms']:.4f} ms")
+        print(f"[time {name}] kernel {r['ms']:.4f} ms, plain "
+              f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms by "
+              f"{r['bound_by']}{lib}, at {shape} ({card})")
 
 
 def counters():
@@ -289,20 +371,19 @@ def intra_edge_phase() -> None:
         fail("the escape planes did not escape")
 
 
-def intra_kernel_phase(frames, card: str):
-    """Phase 3d: K5/K6 vs plain versions on the clip's 24 I-frame planes."""
+def intra_kernel_phase(planes, card: str, plain_reps: int = 3):
+    """Phases 3d and 3h: K5/K6 vs plain versions on uint8 planes [N, H, W]
+    on the card, with times and bounds."""
     import torch
     from vcs_h264_tpu_torch.ops import intra, intra_cuda
 
-    i_frames = np.stack(frames[:GOPS * (P_PER_GOP + 1):P_PER_GOP + 1])
-    planes = torch.from_numpy(i_frames).cuda().permute(0, 3, 1, 2) \
-        .reshape(-1, H, W).contiguous()                      # [24, H, W]
-    k5, lossless, (err5, err6) = check_intra(
-        planes, QSTEP, f"{planes.shape[0]} planes {W}x{H}")
+    n, h, w = planes.shape
+    k5, lossless, (err5, err6) = check_intra(planes, QSTEP,
+                                             f"{n} planes {w}x{h}")
     q, modes, esc, rec = k5
     print(f"[K5 intra_encode] qcoef, modes, escape, recon identical to the "
-          f"plain version on {planes.shape[0]} planes {W}x{H} at qstep "
-          f"{QSTEP}; escapes {int(esc.sum())}, nonzero qcoef "
+          f"plain version on {n} planes {w}x{h} at qstep {QSTEP}; escapes "
+          f"{int(esc.sum())}, nonzero qcoef "
           f"{float((q != 0).float().mean()):.4f}")
     print("[K6 intra_decode] lossy decode identical to K5's recon; "
           "lossless decode identical to the source planes")
@@ -311,22 +392,27 @@ def intra_kernel_phase(frames, card: str):
             max_abs_err=err5,
             ms=time_ms(lambda: intra_cuda.intra_encode(planes, QSTEP), 20),
             plain_ms=time_ms(lambda: intra.intra_encode4x4_lossy_plain(
-                planes, QSTEP), 3, warmup=1)),
+                planes, QSTEP), plain_reps, warmup=1),
+            **bound(nbytes(planes, *k5), planes.numel() * INTRA_ENC_OPS),
+            library_ms=None),
         "intra_decode": dict(
             max_abs_err=err6,
             ms=time_ms(lambda: intra_cuda.intra_decode(q, modes, esc, QSTEP,
                                                        True), 20),
             plain_ms=time_ms(lambda: intra.decode_planes_plain(
-                q, modes, esc, QSTEP, True), 3, warmup=1)),
+                q, modes, esc, QSTEP, True), plain_reps, warmup=1),
+            **bound(nbytes(q, modes, esc, rec),
+                    planes.numel() * INTRA_DEC_OPS),
+            library_ms=None),
     }
     lossless_ms = time_ms(lambda: intra_cuda.intra_decode(*lossless, 0,
                                                           False), 20)
     for name, r in results.items():
         print(f"[time {name}] kernel {r['ms']:.4f} ms, plain "
-              f"{r['plain_ms']:.4f} ms, at N={planes.shape[0]} {W}x{H} "
-              f"qstep {QSTEP} ({card})")
+              f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms by "
+              f"{r['bound_by']}, at N={n} {w}x{h} qstep {QSTEP} ({card})")
     print(f"[time intra_decode lossless] kernel {lossless_ms:.4f} ms at "
-          f"N={planes.shape[0]} {W}x{H} ({card})")
+          f"N={n} {w}x{h} ({card})")
     return results
 
 
@@ -362,7 +448,8 @@ def kernel_phase(frames, card: str):
         max_abs_err=err,
         ms=time_ms(lambda: motion_cuda.sad_search(curs, refs, **search), 20),
         plain_ms=time_ms(lambda: motion.motion_search_plain(curs, refs,
-                                                             **search), 5))
+                                                             **search), 5),
+        **search_bound(curs, refs, mv_p, search), library_ms=None)
 
     # K3/K4 on the searched vectors and on random in-reach vectors (the
     # latter exercise the source clamp at the frame edges)
@@ -395,16 +482,15 @@ def kernel_phase(frames, card: str):
         max_abs_err=enc_err,
         ms=time_ms(lambda: inter_cuda.fused_p_encode(mv_p, refs, curs, qf), 20),
         plain_ms=time_ms(lambda: inter_cuda.encode_p_coeffs_plain(
-            mv_p, refs, curs, qf), 10))
+            mv_p, refs, curs, qf), 10),
+        **coded_bound(mv_p, refs, curs, co, True), library_ms=None)
     results["fused_p_decode"] = dict(
         max_abs_err=dec_err,
         ms=time_ms(lambda: inter_cuda.fused_p_decode(mv_p, refs, co, qf), 20),
         plain_ms=time_ms(lambda: inter_cuda.decode_p_frames_plain(
-            mv_p, refs, co, qf), 10))
-    for name, r in results.items():
-        print(f"[time {name}] kernel {r['ms']:.4f} ms, plain "
-              f"{r['plain_ms']:.4f} ms, at G={GOPS} F={P_PER_GOP} {W}x{H} "
-              f"({card})")
+            mv_p, refs, co, qf), 10),
+        **coded_bound(mv_p, refs, co, curs, True), library_ms=None)
+    print_times(results, f"G={GOPS} F={P_PER_GOP} {W}x{H}", card)
     return results
 
 
@@ -471,16 +557,177 @@ def compensate_kernel_phase(frames, card: str):
         if not torch.equal(got, want):
             fail(f"K1 differs from the plain gather at the {name} shape")
         err = int((got.to(torch.int32) - want.to(torch.int32)).abs().max())
+        # the one PyTorch call: torch.gather on an index built beforehand,
+        # the block-major result not yet transposed back to a frame
+        src, idx = motion.gather_operands(mv, r, 8)
+        idx = idx.contiguous()
+        if not torch.equal(
+                torch.gather(src, 3, idx).reshape(*mv.shape[:2], 3, H // 8,
+                                                  W // 8, 8, 8)
+                .transpose(-3, -2).reshape(got.shape), got):
+            fail(f"torch.gather differs from K1 at the {name} shape")
         out[name] = dict(
             max_abs_err=err,
             ms=time_ms(lambda: motion_cuda.compensate(mv, r, bs=8), 50),
             plain_ms=time_ms(lambda: motion.motion_compensate_plain(
-                mv, r, bs=8), 20))
-        print(f"[time compensate, {name} shape G={mv.shape[0]} "
-              f"F={mv.shape[1]}] identical to the plain gather; kernel "
-              f"{out[name]['ms']:.4f} ms, plain {out[name]['plain_ms']:.4f} "
-              f"ms at {W}x{H} ({card})")
+                mv, r, bs=8), 20),
+            **bound(nbytes(mv, r, got), 0),
+            library_ms=time_ms(lambda: torch.gather(src, 3, idx), 20))
+        del src, idx
+        print_times({f"compensate, {name} shape": out[name]},
+                    f"G={mv.shape[0]} F={mv.shape[1]} {W}x{H}, identical to "
+                    "the plain gather", card)
     return {"compensate": out["P"]}
+
+
+def plane_edge_phase() -> None:
+    """Phase 3g: the bare-plane kernels vs their plain versions at small
+    shapes, identical: the luma pair (C 1, motion cells of 8) and the chroma
+    pair (C 2, cells of 4) on planes of 8x8, one strip row, widths that are
+    not multiples of 32 and partial CTAs; random vectors up to three extents
+    long (odd and negative among them), vectors whose source origins fall
+    at -1, -3, -cell, -extent - 3, extent - cell + 1, extent and 3 * extent
+    on each axis, and all-zero vector rows. Then K2 at C = 1 against the
+    plain search at the threshold 2000 // 3."""
+    import torch
+    from vcs_h264_tpu_torch.ops import inter_cuda, motion, motion_cuda
+
+    rng = np.random.default_rng(5)
+    pairs = (("plane", 1, 8, inter_cuda.plane_encode, inter_cuda.plane_decode,
+              inter_cuda.encode_p_coeffs_plain,
+              inter_cuda.decode_p_frames_plain),
+             ("c420", 2, 4, inter_cuda.c420_encode, inter_cuda.c420_decode,
+              inter_cuda.encode_c420_coeffs_plain,
+              inter_cuda.decode_c420_frames_plain))
+    for name, c, cell, enc, dec, enc_plain, dec_plain in pairs:
+        for g, f, h, w in ((1, 1, 8, 8), (2, 3, 8, 72), (1, 2, 24, 40),
+                           (2, 1, 48, 104), (1, 3, 16, 136)):
+            refs = torch.from_numpy(
+                rng.integers(0, 256, (g, c, h, w), dtype=np.uint8)).cuda()
+            curs = torch.from_numpy(
+                rng.integers(0, 256, (g, f, c, h, w), dtype=np.uint8)).cuda()
+            nh, nw = h // cell, w // cell
+            ext = 3 * max(h, w)
+            mv_r = rng.integers(-ext, ext + 1, (g, f, nh, nw, 2))
+            mv_r[:, :, ::2] = 0                      # all-zero vector rows
+            cases = [(oj, oi)
+                     for oi in (-1, -3, -cell, -h - 3, h - cell + 1, h, 3 * h, 0)
+                     for oj in (-1, -3, -cell, -w - 3, w - cell + 1, w, 3 * w, 0)]
+            n = np.arange(g * f * nh * nw).reshape(g, f, nh, nw)
+            mv_e = np.array(cases)[n % len(cases)]
+            mv_e[..., 0] -= np.arange(nw) * cell
+            mv_e[..., 1] -= np.arange(nh)[:, None] * cell
+            for mv in (mv_r, mv_e):
+                mv = torch.from_numpy(mv.astype(np.int32)).cuda()
+                co = enc_plain(mv, refs, curs, 50.0)
+                if not torch.equal(enc(mv, refs, curs, 50.0), co):
+                    fail(f"{name}_encode differs from its plain version at "
+                         f"{(g, f, c, h, w)}")
+                if not torch.equal(dec(mv, refs, co, 50.0),
+                                   dec_plain(mv, refs, co, 50.0)):
+                    fail(f"{name}_decode differs from its plain version at "
+                         f"{(g, f, c, h, w)}")
+        print(f"[edge {name}_encode / {name}_decode, C {c}, cells of {cell}] "
+              "identical to the plain versions on 8x8, one strip row, widths "
+              "40, 72, 104 and 136, random, out-of-frame and all-zero "
+              "vectors")
+    for g, f, h, w in ((2, 3, 48, 72), (1, 2, 8, 64), (2, 1, 48, 24)):
+        refs = torch.from_numpy(
+            rng.integers(0, 256, (g, 1, h, w), dtype=np.uint8)).cuda()
+        curs = torch.roll(refs[:, None].expand(g, f, 1, h, w), (2, -3),
+                          dims=(-2, -1)).contiguous()
+        curs[:, -1] = (refs.to(torch.int16) + torch.from_numpy(
+            rng.integers(-12, 13, (g, 1, h, w)).astype(np.int16)).cuda()
+            ).clamp(0, 255).to(torch.uint8)          # near the threshold
+        for th in (2000 // 3, 0, 64 * 255):
+            if not torch.equal(
+                    motion_cuda.sad_search(curs, refs, static_threshold=th),
+                    motion.motion_search_plain(curs, refs,
+                                               static_threshold=th)):
+                fail(f"K2 at C = 1 differs from the plain search at "
+                     f"{(g, f, h, w)}, threshold {th}")
+    print("[edge K2, C 1] vectors identical to the plain search at "
+          "thresholds 666, 0 and 16320")
+
+
+def plane_kernel_phase(frames, card: str):
+    """Phase 3h: the 4:2:0 kernels vs their plain versions at the main
+    path's shapes, the clip's 8 GOPs of 3 P-frames ingested to planes."""
+    import torch
+    from vcs_h264_tpu_torch import CodecConfig
+    from vcs_h264_tpu_torch.models import pipeline420
+    from vcs_h264_tpu_torch.ops import inter_cuda, motion, motion_cuda
+
+    cfg = CodecConfig.production(chroma_420=True, intra_qstep=QSTEP)
+    qf = cfg.quality_factor
+    search = dict(bs=cfg.block_size, reach=cfg.search_reach,
+                  step=cfg.search_step,
+                  static_threshold=cfg.static_threshold // 3)
+    gop_len = P_PER_GOP + 1
+    clip = torch.from_numpy(np.stack(frames[:GOPS * gop_len])).cuda()
+    y, c = pipeline420.ingest_420(
+        clip.permute(0, 3, 1, 2).reshape(GOPS, gop_len, 3, H, W))
+    y_ref, y_cur = y[:, :1].contiguous(), y[:, 1:, None].contiguous()
+    c_ref, c_cur = c[:, 0].contiguous(), c[:, 1:].contiguous()
+
+    mv = motion_cuda.sad_search(y_cur, y_ref, **search)
+    mv_p = motion.motion_search_plain(y_cur, y_ref, **search)
+    if not torch.equal(mv, mv_p):
+        fail("K2 at C = 1 differs from the plain search at 720p")
+    k2 = dict(ms=time_ms(lambda: motion_cuda.sad_search(y_cur, y_ref,
+                                                        **search), 20),
+              plain_ms=time_ms(lambda: motion.motion_search_plain(
+                  y_cur, y_ref, **search), 5),
+              **search_bound(y_cur, y_ref, mv, search), library_ms=None)
+    print(f"[K2 sad_search, C 1] vectors identical to the plain search; "
+          f"nonzero vectors {float((mv != 0).any(-1).float().mean()):.4f}")
+    print_times({"sad_search, C 1": k2}, f"G={GOPS} F={P_PER_GOP} {W}x{H}",
+                card)
+
+    mv_c = pipeline420._chroma_mv(mv)
+    rng = np.random.default_rng(6)
+    mv_rand = torch.from_numpy(rng.integers(
+        -cfg.search_reach, cfg.search_reach + 1, mv.shape,
+        dtype=np.int32)).cuda()
+    results = {}
+    cases = (("plane", mv, mv_rand, y_ref, y_cur, inter_cuda.plane_encode,
+              inter_cuda.plane_decode, inter_cuda.encode_p_coeffs_plain,
+              inter_cuda.decode_p_frames_plain),
+             ("c420", mv_c, pipeline420._chroma_mv(mv_rand), c_ref, c_cur,
+              inter_cuda.c420_encode, inter_cuda.c420_decode,
+              inter_cuda.encode_c420_coeffs_plain,
+              inter_cuda.decode_c420_frames_plain))
+    for name, v, v_rand, refs, curs, enc, dec, enc_plain, dec_plain in cases:
+        for what, vec in (("searched", v), ("random", v_rand)):
+            co = enc_plain(vec, refs, curs, qf)
+            if not torch.equal(enc(vec, refs, curs, qf), co):
+                fail(f"{name}_encode differs from its plain version "
+                     f"({what} vectors)")
+            if not torch.equal(dec(vec, refs, co, qf),
+                               dec_plain(vec, refs, co, qf)):
+                fail(f"{name}_decode differs from its plain version "
+                     f"({what} vectors)")
+        co = enc_plain(v, refs, curs, qf)
+        results[f"{name}_encode"] = dict(
+            max_abs_err=0,
+            ms=time_ms(lambda: enc(v, refs, curs, qf), 20),
+            plain_ms=time_ms(lambda: enc_plain(v, refs, curs, qf), 10),
+            **coded_bound(v, refs, curs, co, False), library_ms=None)
+        results[f"{name}_decode"] = dict(
+            max_abs_err=0,
+            ms=time_ms(lambda: dec(v, refs, co, qf), 20),
+            plain_ms=time_ms(lambda: dec_plain(v, refs, co, qf), 10),
+            **coded_bound(v, refs, co, curs, False), library_ms=None)
+        print(f"[{name}_encode / {name}_decode] identical to the plain "
+              f"versions on searched and random vectors at "
+              f"{tuple(curs.shape)}; nonzero coefficients "
+              f"{float((co != 0).float().mean()):.4f}")
+    print_times(results, f"G={GOPS} F={P_PER_GOP}, luma {W}x{H}, chroma "
+                f"2x{W // 2}x{H // 2}", card)
+
+    # K5/K6 on the chroma I planes: 16 planes of 360x640, 90 block rows
+    intra_kernel_phase(c_ref.reshape(-1, H // 2, W // 2), card, plain_reps=1)
+    return results
 
 
 def run_codec(frames, backend: str, cfg, via_npz: bool = True):
@@ -488,12 +735,13 @@ def run_codec(frames, backend: str, cfg, via_npz: bool = True):
     the .npz container (checked field for field) or, for timing runs, a
     copy in host memory; then, with lossy intra, the intra decode of the
     stream's I-frame payloads in batches of 8 GOPs (as the JAX package's
-    bench charges it). Returns (decoded frames, encoded video, intra-decoded
-    I-frames, encode s, decode s, intra decode s)."""
+    bench charges it). Returns (decoded frames, encoded video, per GOP the
+    tuple of intra-decoded I planes, encode s, decode s, intra decode s)."""
     import dataclasses
     import torch
     from vcs_h264_tpu_torch.models import Decoder, EncodedVideo, Encoder
-    from vcs_h264_tpu_torch.models import intra_codec
+    from vcs_h264_tpu_torch.models import intra_codec, pipeline420
+    from vcs_h264_tpu_torch.models.gop import EncodedGOP420
 
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -522,11 +770,22 @@ def run_codec(frames, backend: str, cfg, via_npz: bool = True):
         t0 = time.perf_counter()
         for s in range(0, len(loaded.gops), GOPS):
             chunk = loaded.gops[s:s + GOPS]
+            if cfg.chroma_420:
+                # the payloads and I planes alone: a tail GOP then stacks
+                batch = EncodedGOP420.stack([EncodedGOP420(
+                    g.i_y, g.i_c, g.mv[:0], None, None,
+                    *(getattr(g, k) for k in g.PAYLOAD)) for g in chunk],
+                    "cuda")
+                out = pipeline420.decode_intra_420(batch, cfg.intra_qstep,
+                                                   backend)
+                i_dec.extend(zip(out.i_y.cpu(), out.i_c.cpu()))
+                continue
             pay = intra_codec.IntraFrameLossy(*(
                 torch.stack([getattr(g, k) for g in chunk]).cuda()
                 for k in PAYLOAD))
-            i_dec.extend(intra_codec.decode_intra_frames_lossy_batch(
-                pay, cfg.intra_qstep, backend).cpu())
+            i_dec.extend((x,) for x in
+                         intra_codec.decode_intra_frames_lossy_batch(
+                             pay, cfg.intra_qstep, backend).cpu())
         t_intra = time.perf_counter() - t0
     return decoded, video, i_dec, t_enc, t_dec, t_intra
 
@@ -558,8 +817,9 @@ def stream_diff(video, video_plain):
             x, y = getattr(a, k), getattr(b, k)
             same_mv &= (x is None) == (y is None) and (
                 x is None or torch.equal(x.cpu(), y.cpu()))
-        for k in ("residuals", "b_residuals"):
-            x, y = getattr(a, k), getattr(b, k)
+        for k in ("residuals", "b_residuals", "res_y", "res_c", "bres_y",
+                  "bres_c"):
+            x, y = getattr(a, k, None), getattr(b, k, None)
             if x is None or y is None:
                 continue
             d = (x.cpu().double() - y.cpu().double()).abs()
@@ -638,13 +898,16 @@ def main_path_phase(frames, card: str, cfg, label: str, want, forbid=(),
         print(f"[{label}] an encode with TF32 allowed gives identical "
               f"coefficients in all {len(video.gops)} GOPs")
     if cfg.intra_qstep:
+        i_fields = ("i_y", "i_c") if cfg.chroma_420 else ("i_frame",)
         for g, (a, b) in enumerate(zip(video.gops, video_plain.gops)):
-            for k in ("i_frame", *PAYLOAD):
+            for k in (*i_fields, *a.PAYLOAD):
                 if not torch.equal(getattr(a, k).cpu(), getattr(b, k).cpu()):
                     fail(f"GOP {g}: {k} of the kernel path differs from the "
                          "plain path's")
         for g, (gop, a, b) in enumerate(zip(video.gops, i_dec, i_dec_plain)):
-            if not (torch.equal(a, gop.i_frame.cpu()) and torch.equal(a, b)):
+            stored = tuple(getattr(gop, k).cpu() for k in i_fields)
+            if not all(torch.equal(x, y) and torch.equal(x, z)
+                       for x, y, z in zip(a, stored, b)):
                 fail(f"GOP {g}: the intra decode of the loaded payload "
                      "differs from the stored I-frame")
         print(f"[{label}] I-frame reconstructions, modes, escapes and qcoef "
@@ -678,16 +941,91 @@ def main_path_phase(frames, card: str, cfg, label: str, want, forbid=(),
     return launches
 
 
+def main_paths() -> list:
+    """Phase 4's paths: (config, label, what `main_path_phase` holds it
+    to)."""
+    from vcs_h264_tpu_torch import CodecConfig
+
+    p_kernels = ("sad_search", "fused_p_encode", "fused_p_decode")
+    intra = ("intra_encode", "intra_decode")
+    planes = ("sad_search", "plane_encode", "plane_decode", "c420_encode",
+              "c420_decode")
+    fullres = ("fused_p_encode", "fused_p_decode")
+    # PSNR floors: a lossy I-frame lowers the P- and B-frames; reference
+    # mode's wrap residual passes cv2's clipped YCrCb, which loses
+    # mixed-sign residuals of noisy content by up to 255 at a pixel
+    return [
+        (CodecConfig.production(), "main path, raw I-frames",
+         dict(want=p_kernels)),
+        (CodecConfig.production(intra_qstep=QSTEP),
+         f"main path, intra_qstep {QSTEP}",
+         dict(want=p_kernels + intra, psnr_floor=20.0)),
+        (CodecConfig(), "reference mode",
+         dict(want=("sad_search", "compensate"),
+              forbid=("fused_p_encode", "fused_p_decode"), exact=True,
+              tf32_check=True, psnr_floor=20.0)),
+        (CodecConfig.production(intra_qstep=QSTEP, gop_pattern=IBPBPBP),
+         f"production B, intra_qstep {QSTEP}",
+         dict(want=("compensate",) + p_kernels + intra, runs=1,
+              psnr_floor=20.0)),
+        (CodecConfig.production(chroma_420=True, intra_qstep=QSTEP),
+         f"4:2:0, intra_qstep {QSTEP}",
+         dict(want=planes + intra, forbid=fullres, runs=1, exact=True,
+              psnr_floor=20.0)),
+        (CodecConfig.production(chroma_420=True, intra_qstep=QSTEP,
+                                gop_pattern=IBPBPBP),
+         f"4:2:0 B, intra_qstep {QSTEP}",
+         dict(want=("compensate",) + planes + intra, forbid=fullres, runs=1,
+              exact=True, psnr_floor=20.0)),
+        (CodecConfig.production(intra_qstep=QSTEP, search_luma_only=True),
+         f"luma-only search, intra_qstep {QSTEP}",
+         dict(want=p_kernels + intra,
+              forbid=planes[1:] + ("compensate",), runs=1, psnr_floor=20.0)),
+    ]
+
+
+def profile_path(frames, card: str, cfg, label: str, rows: int = 10) -> None:
+    """--profile: one kernel-path run under torch.profiler, after a warm-up
+    run: where the device time of the window goes, by kernel or copy."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    run_codec(frames, "auto", cfg, via_npz=False)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run_codec(frames, "auto", cfg, via_npz=False)
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    # device-side rows only: a host-side operator row repeats the device
+    # time of the kernels and copies it started
+    events = [(e.key, e.self_device_time_total / 1e3, e.count)
+              for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and e.self_device_time_total > 0]
+    if not events:
+        fail(f"torch.profiler recorded no device time ({label})")
+    events.sort(key=lambda r: -r[1])
+    total = sum(ms for _, ms, _ in events)
+    print(f"[profile {label}] {wall * 1e3:.1f} ms on the host clock (under "
+          f"the profiler), {total:.1f} ms of device time in {len(events)} "
+          f"rows ({card}):")
+    for key, ms, count in events[:rows]:
+        print(f"[profile {label}]   {ms:9.3f} ms  x{count:<4d} {key[:90]}")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--profile", action="store_true",
+                    help="profile each path once instead of checking")
     args = ap.parse_args()
 
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
-    from vcs_h264_tpu_torch import CodecConfig
     from vcs_h264_tpu_torch.ops import _build
 
     # phase 1: the card
@@ -704,36 +1042,29 @@ def main() -> int:
           f"({'nvcc' if _build.build_seconds is not None else 'cached'}) -> "
           f"{_build.library_path().name}")
 
+    frames = synthetic_clip(args.seed, CLIP_FRAMES)
+    if args.profile:
+        from torch.profiler import ProfilerActivity, profile
+        with profile(activities=[ProfilerActivity.CUDA]):   # its start-up
+            torch.zeros(1, device="cuda")
+        for cfg, label, _ in main_paths():
+            profile_path(frames, card, cfg, label)
+        return 0
+
     edge_shape_phase()
     intra_edge_phase()
     compensate_edge_phase()
-    frames = synthetic_clip(args.seed, CLIP_FRAMES)
+    plane_edge_phase()
     kernels = kernel_phase(frames, card)
-    kernels.update(intra_kernel_phase(frames, card))
+    i_frames = np.stack(frames[:GOPS * (P_PER_GOP + 1):P_PER_GOP + 1])
+    kernels.update(intra_kernel_phase(
+        torch.from_numpy(i_frames).cuda().permute(0, 3, 1, 2)
+        .reshape(-1, H, W).contiguous(), card))             # [24, H, W]
     kernels.update(compensate_kernel_phase(frames, card))
+    kernels.update(plane_kernel_phase(frames, card))
 
-    p_kernels = ("sad_search", "fused_p_encode", "fused_p_decode")
-    intra = ("intra_encode", "intra_decode")
-    # PSNR floors: a lossy I-frame lowers the P- and B-frames; reference
-    # mode's wrap residual passes cv2's clipped YCrCb, which loses
-    # mixed-sign residuals of noisy content by up to 255 at a pixel
-    paths = [
-        (CodecConfig.production(), "main path, raw I-frames",
-         dict(want=p_kernels)),
-        (CodecConfig.production(intra_qstep=QSTEP),
-         f"main path, intra_qstep {QSTEP}",
-         dict(want=p_kernels + intra, psnr_floor=20.0)),
-        (CodecConfig(), "reference mode",
-         dict(want=("sad_search", "compensate"),
-              forbid=("fused_p_encode", "fused_p_decode"), exact=True,
-              tf32_check=True, psnr_floor=20.0)),
-        (CodecConfig.production(intra_qstep=QSTEP, gop_pattern=IBPBPBP),
-         f"production B, intra_qstep {QSTEP}",
-         dict(want=("compensate",) + p_kernels + intra, runs=1,
-              psnr_floor=20.0)),
-    ]
     launches = {}
-    for cfg, label, kw in paths:
+    for cfg, label, kw in main_paths():
         for k, v in main_path_phase(frames, card, cfg, label, **kw).items():
             launches[k] = launches.get(k, 0) + v
 
@@ -750,6 +1081,14 @@ def main() -> int:
                          "vcs_h264_tpu/ops/intra_pallas.py:341"),
         "intra_decode": ("vcs_h264_tpu_torch/csrc/intra_wavefront.cu",
                          "vcs_h264_tpu/ops/intra_pallas.py:381"),
+        "plane_encode": ("vcs_h264_tpu_torch/csrc/inter_plane.cu",
+                         "vcs_h264_tpu/ops/inter_pallas.py:387"),
+        "plane_decode": ("vcs_h264_tpu_torch/csrc/inter_plane.cu",
+                         "vcs_h264_tpu/ops/inter_pallas.py:413"),
+        "c420_encode": ("vcs_h264_tpu_torch/csrc/inter_plane.cu",
+                        "vcs_h264_tpu/ops/inter_pallas.py:469"),
+        "c420_decode": ("vcs_h264_tpu_torch/csrc/inter_plane.cu",
+                        "vcs_h264_tpu/ops/inter_pallas.py:493"),
     }
     record = [dict(name=name, route="cuda", source=src, replaces=rep,
                    launches=launches[name], **kernels[name])

@@ -148,7 +148,7 @@ def test_production_bframes_match_jax(rng, tmp_path):
     from_jax_file = EncodedVideo.load_npz(str(tmp_path / "jax.npz"))
     assert_same_stream(from_jax_file, jvid, torch.int16)
     _assert_close_frames(Decoder(device="cpu").decode(from_jax_file), jdec)
-    assert inter_cuda.LAUNCHES == {"fused_p_encode": 0, "fused_p_decode": 0}
+    assert not any(inter_cuda.LAUNCHES.values())
 
 
 def test_single_gop_entry_points_with_b(rng):

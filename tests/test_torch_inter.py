@@ -69,7 +69,7 @@ def test_encode_decode_match_jax(rng, h, w, qf):
     diff = np.abs(got_d.numpy().astype(np.int64) - want_d)
     assert diff.max() <= 1
     assert (diff != 0).mean() < 1e-4
-    assert inter_cuda.LAUNCHES == {"fused_p_encode": 0, "fused_p_decode": 0}
+    assert not any(inter_cuda.LAUNCHES.values())
 
 
 @pytest.fixture
@@ -117,4 +117,4 @@ def test_kernel_wrappers_refuse_cpu_tensors(rng):
         inter_cuda.fused_p_decode(*_t(mv, refs), co, 50.0)
     with pytest.raises(ValueError, match="backend"):
         inter_cuda.decode_p_frames(*_t(mv, refs), co, 50.0, backend="cuda")
-    assert inter_cuda.LAUNCHES == {"fused_p_encode": 0, "fused_p_decode": 0}
+    assert not any(inter_cuda.LAUNCHES.values())

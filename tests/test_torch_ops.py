@@ -48,8 +48,6 @@ def test_config_validation_matches_jax(kwargs):
 
 @pytest.mark.parametrize("kwargs", [
     dict(quant_mode="rounded", signed_residual=False),
-    dict(quant_mode="rounded", chroma_420=True),
-    dict(quant_mode="rounded", search_luma_only=True),
 ])
 def test_unported_modes_raise(kwargs):
     with pytest.raises(NotImplementedError):
@@ -60,11 +58,13 @@ def test_unported_modes_raise(kwargs):
     dict(), dict(quant_mode="rounded", with_dct=False, block_size=8),
     dict(quant_mode="rounded", gop_pattern=("I", "B", "P")),
     dict(quant_mode="rounded", with_residual=False),
+    dict(quant_mode="rounded", chroma_420=True),
+    dict(quant_mode="rounded", search_luma_only=True),
 ])
 def test_ported_modes_are_supported(kwargs, rng, tmp_path):
-    """Reference mode, no DCT, B patterns and no residual: supported, and a
-    tiny encode -> .npz -> decode gives every frame back (a full GOP and
-    an I-frame-only tail)."""
+    """Reference mode, no DCT, B patterns, no residual, 4:2:0 and the
+    luma-only search: supported, and a tiny encode -> .npz -> decode gives
+    every frame back (a full GOP and an I-frame-only tail)."""
     from vcs_h264_tpu_torch.models import Decoder, EncodedVideo, Encoder
     cfg = CodecConfig(**kwargs)
     check_supported(cfg)

@@ -105,7 +105,7 @@ def test_reference_mode_matches_jax(rng, tmp_path, n_frames):
                        [JaxGOP(**g) for g in back["gops"]])
     assert_same_frames(JaxDecoder().decode(rebuilt), dec)
     assert motion_cuda.LAUNCHES == {"sad_search": 0, "compensate": 0}
-    assert inter_cuda.LAUNCHES == {"fused_p_encode": 0, "fused_p_decode": 0}
+    assert not any(inter_cuda.LAUNCHES.values())
 
 
 @pytest.mark.parametrize("bs", [4, 8, 16])

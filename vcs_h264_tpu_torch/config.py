@@ -112,8 +112,6 @@ class CodecConfig:
 _NOT_PORTED = (
     (lambda c: not c.signed_residual,
      "signed_residual=False, the legacy v3 container (ROADMAP M6)"),
-    (lambda c: c.chroma_420, "chroma_420 (ROADMAP M10 with kernel K7)"),
-    (lambda c: c.search_luma_only, "search_luma_only (ROADMAP M9)"),
 )
 
 

@@ -14,13 +14,17 @@ import numpy as np
 import torch
 
 from vcs_h264_tpu_torch.config import CodecConfig, check_supported
-from vcs_h264_tpu_torch.models.gop import (EncodedGOP, EncodedVideo,
+from vcs_h264_tpu_torch.models.gop import (NPZ_420, EncodedGOP,
+                                            EncodedGOP420, EncodedVideo,
                                             residual_dtype)
 
 
 def _dtypes(cfg: CodecConfig) -> dict:
-    """EncodedGOP field -> dtype, as both packages store it; the residuals'
-    follows the mode (`models.gop.residual_dtype`)."""
+    """GOP field -> dtype, as both packages hold it in memory; the
+    residuals' follows the mode (`models.gop.residual_dtype`). Under
+    `chroma_420` the fields are `EncodedGOP420`'s."""
+    if cfg.chroma_420:
+        return {name: mem for name, (_, _, mem) in NPZ_420.items()}
     res = residual_dtype(cfg)
     return dict(i_frame=np.uint8, mv=np.int32, residuals=res, b_mv=np.int32,
                 b_mode=np.int8, b_residuals=res, i_qcoef=np.int16,
@@ -38,8 +42,9 @@ def from_jax_video(video) -> EncodedVideo:
         return None if v is None else torch.from_numpy(
             np.asarray(v).astype(dtype))
 
-    gops = [EncodedGOP(**{k: conv(getattr(gop, k), dt)
-                          for k, dt in _dtypes(cfg).items()})
+    record = EncodedGOP420 if cfg.chroma_420 else EncodedGOP
+    gops = [record(**{k: conv(getattr(gop, k), dt)
+                      for k, dt in _dtypes(cfg).items()})
             for gop in video.gops]
     return EncodedVideo(cfg, int(video.height), int(video.width),
                         float(video.fps), int(video.num_frames), gops)
@@ -52,7 +57,9 @@ def to_numpy_video(video: EncodedVideo) -> dict:
     fields (`i_frame` uint8, `mv` int32, `residuals` in the mode's dtype,
     the B-frame fields `b_mv` int32, `b_mode` int8 and `b_residuals`, and
     the lossy-intra payload `i_qcoef` int16, `i_modes` int8, `i_escape`
-    bool; None where absent)."""
+    bool; None where absent). A 4:2:0 stream's dicts are keyed like
+    `EncodedGOP420`: `i_y`, `i_c` uint8, `mv`, `res_y`, `res_c`, the six
+    payload fields, `b_mv`, `b_mode`, `bres_y`, `bres_c`."""
     dtypes = _dtypes(video.config)
     return dict(
         config=dataclasses.asdict(video.config), height=video.height,

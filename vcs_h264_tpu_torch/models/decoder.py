@@ -1,5 +1,5 @@
 """Host-side decoder orchestration (counterpart of
-`vcs_h264_tpu/models/decoder.py:22-82`, full resolution).
+`vcs_h264_tpu/models/decoder.py:22-126`).
 
 Full GOPs (I + P + B frames as many as the pattern has) are decoded
 `gop_batch` at a time on the device; a tail GOP on its own, and an
@@ -7,6 +7,8 @@ I-frame-only GOP straight from its stored frame. A GOP without residuals
 (with_residual=False) decodes from the compensation alone. With lossy
 intra the stored I-frame is already the reconstruction, so the intra
 payload is dropped before any upload: the P-frame decode never reads it.
+A 4:2:0 stream takes the same walk through `models/pipeline420.py`, and
+its I-frame-only GOP is emitted from its stored planes.
 """
 
 from __future__ import annotations
@@ -17,9 +19,9 @@ import numpy as np
 import torch
 
 from vcs_h264_tpu_torch.config import check_supported
-from vcs_h264_tpu_torch.models import pipeline
+from vcs_h264_tpu_torch.models import pipeline, pipeline420
 from vcs_h264_tpu_torch.models.encoder import resolve_device
-from vcs_h264_tpu_torch.models.gop import EncodedGOP, EncodedVideo
+from vcs_h264_tpu_torch.models.gop import EncodedVideo
 from vcs_h264_tpu_torch.ops.motion import check_backend
 
 
@@ -43,7 +45,7 @@ class Decoder:
     def iter_frames(self, video: EncodedVideo) -> Iterator[np.ndarray]:
         """Yield BGR uint8 [H, W, 3] frames in stream order."""
         check_supported(video.config)
-        for n, frame in enumerate(self._iter_fullres(video)):
+        for n, frame in enumerate(self._iter_gops(video)):
             if n >= video.num_frames:
                 return
             yield frame
@@ -52,15 +54,28 @@ class Decoder:
         """uint8 [N, 3, H, W] on the device -> N host frames [H, W, 3]."""
         yield from planar.movedim(-3, -1).contiguous().cpu().numpy()
 
-    def _iter_fullres(self, video: EncodedVideo) -> Iterator[np.ndarray]:
+    def _iter_gops(self, video: EncodedVideo) -> Iterator[np.ndarray]:
         cfg = video.config
-        buf: List[EncodedGOP] = []
+        if cfg.chroma_420:
+            def decode_batch(batch):
+                return pipeline420.decode_gop_batch_420(
+                    batch, cfg, backend=self.backend)
+
+            def i_frame(gop):
+                return pipeline420.emit_bgr(gop.i_y.to(self.device),
+                                            gop.i_c.to(self.device))
+        else:
+            def decode_batch(batch):
+                return pipeline.decode_gop_batch(batch, cfg, self.backend)
+
+            def i_frame(gop):
+                return gop.i_frame
+        buf: List = []
 
         def flush():
             if not buf:
                 return
-            out = pipeline.decode_gop_batch(
-                EncodedGOP.stack(buf, self.device), cfg, self.backend)
+            out = decode_batch(type(buf[0]).stack(buf, self.device))
             buf.clear()
             yield from self._host_frames(out.flatten(0, 1))
 
@@ -73,8 +88,8 @@ class Decoder:
                 continue
             yield from flush()
             if gop.num_p == 0:
-                yield from self._host_frames(gop.i_frame[None])
+                yield from self._host_frames(i_frame(gop)[None])
             else:
-                yield from self._host_frames(pipeline.decode_gop(
-                    gop.to(self.device), cfg, self.backend))
+                yield from self._host_frames(decode_batch(
+                    type(gop).stack([gop], self.device))[0])
         yield from flush()

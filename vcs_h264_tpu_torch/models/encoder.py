@@ -1,5 +1,5 @@
 """Host-side encoder orchestration (counterpart of
-`vcs_h264_tpu/models/encoder.py:149-287`).
+`vcs_h264_tpu/models/encoder.py:149-357`).
 
 Frames are grouped into GOPs (frame n is an I-frame when n % gop_len == 0),
 full GOPs are encoded `gop_batch` at a time on the device, and a shorter
@@ -8,6 +8,11 @@ pattern a full GOP codes its B-frames; a tail GOP is coded all-P. With
 `intra_qstep > 0` each batch's I-frames are lossy intra-coded first (K5 on
 a GPU); the P-frames are then coded against that reconstruction, which is
 what the decoder has, and each GOP carries the intra payload.
+
+Under `chroma_420` the same grouping feeds `models/pipeline420.py`: each
+batch is ingested to Y and half-resolution chroma planes on the device and
+coded there, lossy intra included, and an I-frame-only GOP stores its
+ingested (or intra-reconstructed) planes.
 """
 
 from __future__ import annotations
@@ -19,8 +24,9 @@ import numpy as np
 import torch
 
 from vcs_h264_tpu_torch.config import CodecConfig, check_supported
-from vcs_h264_tpu_torch.models import intra_codec, pipeline
-from vcs_h264_tpu_torch.models.gop import EncodedGOP, EncodedVideo
+from vcs_h264_tpu_torch.models import intra_codec, pipeline, pipeline420
+from vcs_h264_tpu_torch.models.gop import (EncodedGOP, EncodedGOP420,
+                                            EncodedVideo)
 from vcs_h264_tpu_torch.ops.motion import check_backend
 
 
@@ -90,7 +96,8 @@ class Encoder:
     def encode_frames(self, frames: Sequence[np.ndarray], fps: float = 25.0,
                       checkpoint_dir: Optional[str] = None) -> EncodedVideo:
         """Encode BGR uint8 frames [H, W, 3] of one shape, H and W multiples
-        of the block size."""
+        of the block size (of twice the block size under `chroma_420`: the
+        half-resolution chroma planes hold whole transform blocks)."""
         if checkpoint_dir is not None:
             raise NotImplementedError(
                 "vcs_h264_tpu_torch does not port per-GOP checkpoints yet "
@@ -100,6 +107,9 @@ class Encoder:
         cfg = self.cfg
         h, w, _ = frames[0].shape
         bs = cfg.block_size
+        if cfg.chroma_420 and (h % (2 * bs) or w % (2 * bs)):
+            raise ValueError(f"frame {h}x{w} must be a multiple of {2 * bs}, "
+                             "twice the block size, under chroma_420")
         if h % bs or w % bs:
             raise ValueError(f"frame {h}x{w} must be a multiple of block {bs}")
         grouped = group_into_gops(frames, cfg.gop_len)
@@ -110,6 +120,10 @@ class Encoder:
         full = [i for i, f in enumerate(is_full) if f]
         tail = [i for i, f in enumerate(is_full) if not f]
         encoded: List[Optional[EncodedGOP]] = [None] * len(grouped)
+        if cfg.chroma_420:
+            self._encode_420(grouped, full, tail, encoded)
+            return EncodedVideo(config=cfg, height=h, width=w, fps=fps,
+                                num_frames=len(frames), gops=encoded)
 
         for start in range(0, len(full), self.gop_batch):
             idxs = full[start:start + self.gop_batch]
@@ -136,3 +150,36 @@ class Encoder:
             encoded[idx] = dataclasses.replace(gop, **payloads[0])
         return EncodedVideo(config=cfg, height=h, width=w, fps=fps,
                             num_frames=len(frames), gops=encoded)
+
+    def _encode_420(self, grouped, full, tail, encoded) -> None:
+        """4:2:0: full GOPs batched, a shorter tail GOP as a batch of one,
+        an I-frame-only GOP from its ingested planes."""
+        cfg = self.cfg
+        for start in range(0, len(full), self.gop_batch):
+            idxs = full[start:start + self.gop_batch]
+            out = pipeline420.encode_gop_batch_420(
+                self._upload(np.stack([grouped[i][0] for i in idxs])),
+                self._upload(np.stack([grouped[i][1] for i in idxs])),
+                cfg, self.backend)
+            for bi, idx in enumerate(idxs):
+                encoded[idx] = out.select(bi)
+
+        for idx in tail:
+            i_f, p_f = grouped[idx]
+            i_b = self._upload(i_f[None])
+            if p_f.shape[0]:
+                encoded[idx] = pipeline420.encode_gop_batch_420(
+                    i_b, self._upload(p_f[None]), cfg, self.backend).select(0)
+                continue
+            h, w = i_f.shape[:2]
+            y, c = pipeline420.ingest_420(i_b)
+            payload = {}
+            if cfg.intra_qstep:
+                (y, c), payload = pipeline420.encode_intra_420(
+                    y, c, cfg.intra_qstep, self.backend)
+            encoded[idx] = EncodedGOP420(
+                i_y=y, i_c=c,
+                mv=torch.zeros((1, 0, h // cfg.block_size,
+                                w // cfg.block_size, 2), dtype=torch.int32,
+                               device=self.device),
+                res_y=None, res_c=None, **payload).select(0)

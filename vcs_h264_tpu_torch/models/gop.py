@@ -10,13 +10,22 @@ files: a `_meta` JSON string, then per GOP g `gop{g}_i` uint8 [3, H, W],
 and `gop{g}_bres` [NB, 3, H, W], and with lossy intra I-frames the payload
 `gop{g}_iq` int16 [3, H, W], `gop{g}_imodes` int8 and `gop{g}_iesc` bool
 [3, H/4, W/4].
+
+A 4:2:0 stream (`chroma_420`) stores per GOP the planes `gop{g}_y` uint8
+[H, W] and `gop{g}_c` uint8 [2, H/2, W/2], `gop{g}_mv` int16, the int16
+coefficients `gop{g}_resy` [P, H, W] and `gop{g}_resc` [P, 2, H/2, W/2],
+with B-frames `gop{g}_bmv`, `gop{g}_bmode`, `gop{g}_bresy` and
+`gop{g}_bresc`, and with lossy intra the payloads of the luma plane
+(`gop{g}_iqy` int16 [1, H, W], `_imy` int8, `_iey` bool [1, H/4, W/4]) and
+of the chroma planes (`gop{g}_iqc` [2, H/2, W/2], `_imc`, `_iec`
+[2, H/8, W/8]).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import json
-from typing import List, Optional, Sequence
+from typing import List, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -33,8 +42,53 @@ def residual_dtype(cfg: CodecConfig) -> np.dtype:
     return np.dtype(np.int16 if cfg.quant_mode == "rounded" else np.float32)
 
 
+class _GOPFields:
+    """What the two GOP records share: the tensor fields handled as one (a
+    None field stays None) and the frame counts. Both have `mv` and `b_mv`."""
+
+    def _fields(self) -> tuple:
+        return tuple(getattr(self, f.name) for f in dataclasses.fields(self))
+
+    def _map(self, fn):
+        """Apply fn to every tensor field, keeping the None ones."""
+        return type(self)(*(None if v is None else fn(v)
+                            for v in self._fields()))
+
+    @property
+    def num_p(self) -> int:
+        return self.mv.shape[-4]
+
+    @property
+    def num_b(self) -> int:
+        return 0 if self.b_mv is None else self.b_mv.shape[-5]
+
+    @property
+    def num_coded(self) -> int:
+        """Frames the GOP codes: I + P + B."""
+        return 1 + self.num_p + self.num_b
+
+    def select(self, b: int):
+        """GOP b of a batch."""
+        return self._map(lambda v: v[b])
+
+    def to(self, device):
+        return self._map(lambda v: v.to(device))
+
+    def without_intra_payload(self):
+        """The GOP without the lossy-intra payload, which the P-frame decode
+        never reads: the stored I planes already hold its reconstruction."""
+        return dataclasses.replace(self, **{k: None for k in self.PAYLOAD})
+
+    @classmethod
+    def stack(cls, gops: Sequence, device):
+        """Batch GOPs of one shape onto `device`."""
+        fields = zip(*(g._fields() for g in gops))
+        return cls(*(None if vs[0] is None
+                     else torch.stack(vs).to(device) for vs in fields))
+
+
 @dataclasses.dataclass
-class EncodedGOP:
+class EncodedGOP(_GOPFields):
     """One encoded GOP, or a batch of them with a leading GOP axis.
 
     i_frame:   uint8 [3, H, W]             the I-frame: raw, or with lossy
@@ -68,46 +122,63 @@ class EncodedGOP:
     i_modes: Optional[torch.Tensor] = None
     i_escape: Optional[torch.Tensor] = None
 
-    def _fields(self) -> tuple:
-        return tuple(getattr(self, f.name) for f in dataclasses.fields(self))
+    PAYLOAD = ("i_qcoef", "i_modes", "i_escape")
 
-    def _map(self, fn) -> "EncodedGOP":
-        """Apply fn to every tensor field, keeping the None ones."""
-        return EncodedGOP(*(None if v is None else fn(v)
-                            for v in self._fields()))
 
-    @property
-    def num_p(self) -> int:
-        return self.mv.shape[-4]
+@dataclasses.dataclass
+class EncodedGOP420(_GOPFields):
+    """One encoded 4:2:0 GOP, or a batch of them with a leading GOP axis
+    (counterpart of `vcs_h264_tpu/models/pipeline420.py:EncodedGOP420`,
+    field for field and in its order).
 
-    @property
-    def num_b(self) -> int:
-        return 0 if self.b_mv is None else self.b_mv.shape[-5]
+    i_y:    uint8 [H, W]                 the I-frame's luma plane and
+    i_c:    uint8 [2, H/2, W/2]          chroma planes (Cr, Cb): ingested,
+                                         or with lossy intra reconstructed
+    mv:     int32 [P, nbh, nbw, 2]       luma vectors; chroma rides their
+                                         floor-halved values on 4-px cells
+    res_y:  int16 [P, H, W] or None      quantized luma coefficients
+    res_c:  int16 [P, 2, H/2, W/2]       quantized chroma coefficients
 
-    @property
-    def num_coded(self) -> int:
-        """Frames the GOP codes: I + P + B."""
-        return 1 + self.num_p + self.num_b
+    Lossy-intra payloads (None unless intra_qstep > 0), per resolution:
+    iq_y int16 [1, H, W], im_y int8 and ie_y bool [1, H/4, W/4];
+    iq_c int16 [2, H/2, W/2], im_c int8 and ie_c bool [2, H/8, W/8].
 
-    def select(self, b: int) -> "EncodedGOP":
-        """GOP b of a batch."""
-        return self._map(lambda v: v[b])
+    B-frame fields (None unless the GOP is a full GOP of a B pattern):
+    b_mv int32 [NB, 2, nbh, nbw, 2], b_mode int8 [NB, nbh, nbw] (decided on
+    luma SAD), bres_y int16 [NB, H, W], bres_c int16 [NB, 2, H/2, W/2].
+    """
+    i_y: torch.Tensor
+    i_c: torch.Tensor
+    mv: torch.Tensor
+    res_y: Optional[torch.Tensor]
+    res_c: Optional[torch.Tensor]
+    iq_y: Optional[torch.Tensor] = None
+    im_y: Optional[torch.Tensor] = None
+    ie_y: Optional[torch.Tensor] = None
+    iq_c: Optional[torch.Tensor] = None
+    im_c: Optional[torch.Tensor] = None
+    ie_c: Optional[torch.Tensor] = None
+    b_mv: Optional[torch.Tensor] = None
+    b_mode: Optional[torch.Tensor] = None
+    bres_y: Optional[torch.Tensor] = None
+    bres_c: Optional[torch.Tensor] = None
 
-    def to(self, device) -> "EncodedGOP":
-        return self._map(lambda v: v.to(device))
+    PAYLOAD = ("iq_y", "im_y", "ie_y", "iq_c", "im_c", "ie_c")
 
-    def without_intra_payload(self) -> "EncodedGOP":
-        """The GOP without the lossy-intra payload, which the P-frame decode
-        never reads: `i_frame` already holds its reconstruction."""
-        return dataclasses.replace(self, i_qcoef=None, i_modes=None,
-                                   i_escape=None)
 
-    @staticmethod
-    def stack(gops: Sequence["EncodedGOP"], device) -> "EncodedGOP":
-        """Batch GOPs of one shape onto `device`."""
-        fields = zip(*(g._fields() for g in gops))
-        return EncodedGOP(*(None if vs[0] is None
-                            else torch.stack(vs).to(device) for vs in fields))
+# 4:2:0: EncodedGOP420 field -> (.npz key suffix, stored dtype, dtype in
+# memory), both as the JAX package has them.
+NPZ_420 = dict(
+    i_y=("y", np.uint8, np.uint8), i_c=("c", np.uint8, np.uint8),
+    mv=("mv", np.int16, np.int32),
+    res_y=("resy", np.int16, np.int16), res_c=("resc", np.int16, np.int16),
+    iq_y=("iqy", np.int16, np.int16), im_y=("imy", np.int8, np.int8),
+    ie_y=("iey", bool, bool),
+    iq_c=("iqc", np.int16, np.int16), im_c=("imc", np.int8, np.int8),
+    ie_c=("iec", bool, bool),
+    b_mv=("bmv", np.int16, np.int32), b_mode=("bmode", np.int8, np.int8),
+    bres_y=("bresy", np.int16, np.int16),
+    bres_c=("bresc", np.int16, np.int16))
 
 
 @dataclasses.dataclass
@@ -118,11 +189,21 @@ class EncodedVideo:
     width: int
     fps: float
     num_frames: int
-    gops: List[EncodedGOP]
+    gops: List[Union[EncodedGOP, EncodedGOP420]]     # 420 under chroma_420
 
     def save_npz(self, path: str) -> None:
-        res_dt = residual_dtype(self.config)
         arrays = {}
+        if self.config.chroma_420:
+            for g, gop in enumerate(self.gops):
+                for name, (key, stored, _) in NPZ_420.items():
+                    v = getattr(gop, name)
+                    if v is not None:
+                        arrays[f"gop{g}_{key}"] = v.cpu().numpy().astype(
+                            stored, copy=False)
+            np.savez_compressed(path, _meta=np.array([json.dumps(
+                self._meta_dict())]), **arrays)
+            return
+        res_dt = residual_dtype(self.config)
 
         def put(key, v, dtype):
             if v is not None:
@@ -174,6 +255,14 @@ class EncodedVideo:
                 intra_qstep=int(meta.get("intra_qstep", 0)),
                 chroma_420=bool(meta.get("chroma_420", 0)))
             check_supported(cfg)
+            head = (cfg, int(meta["height"]), int(meta["width"]),
+                    float(meta["fps"]), int(meta["num_frames"]))
+            if cfg.chroma_420:
+                return cls(*head, [EncodedGOP420(**{
+                    name: (torch.from_numpy(data[f"gop{g}_{key}"].astype(mem))
+                           if f"gop{g}_{key}" in data.files else None)
+                    for name, (key, _, mem) in NPZ_420.items()})
+                    for g in range(int(meta["num_gops"]))])
 
             res_dt = residual_dtype(cfg)
 
@@ -200,5 +289,4 @@ class EncodedVideo:
                         i_modes=arr(key + "imodes", np.int8),
                         i_escape=arr(key + "iesc", bool))
                 gops.append(gop)
-        return cls(cfg, int(meta["height"]), int(meta["width"]),
-                   float(meta["fps"]), int(meta["num_frames"]), gops)
+        return cls(*head, gops)

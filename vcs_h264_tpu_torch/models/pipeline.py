@@ -1,5 +1,5 @@
 """GOP encode / decode (counterpart of `vcs_h264_tpu/models/pipeline.py`,
-full resolution).
+full resolution; the 4:2:0 mode is `models/pipeline420.py`).
 
 Every P-frame of a GOP references the GOP's I-frame. Two compositions code
 the P-frames, chosen by the config as the JAX package chooses them:
@@ -136,11 +136,23 @@ def _encode_residual(cur: torch.Tensor, recon: torch.Tensor,
     return resid.to(torch.uint8)
 
 
+def _search_inputs(curs, refs, cfg: CodecConfig):
+    """What the search compares: curs [G, F, C, H, W] and refs [G, C, H, W]
+    as they are, or under `search_luma_only` their G channel (index 1 of
+    planar BGR) alone, with the static threshold, which is denominated in
+    3-channel SAD, divided by 3. Encoder-side only: the vectors drive the
+    compensation of all channels. -> (curs, refs, static_threshold)."""
+    if not cfg.search_luma_only:
+        return curs, refs, cfg.static_threshold
+    return (curs[:, :, 1:2].contiguous(), refs[:, 1:2].contiguous(),
+            cfg.static_threshold // 3)
+
+
 def _search(curs, refs, cfg: CodecConfig, backend: str) -> torch.Tensor:
+    curs, refs, threshold = _search_inputs(curs, refs, cfg)
     return motion.motion_search_gops(
         curs, refs, bs=cfg.block_size, reach=cfg.search_reach,
-        step=cfg.search_step, static_threshold=cfg.static_threshold,
-        backend=backend)
+        step=cfg.search_step, static_threshold=threshold, backend=backend)
 
 
 def _compensate_frames(mv, refs, cfg: CodecConfig, backend: str):

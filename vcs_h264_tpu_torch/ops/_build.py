@@ -44,6 +44,12 @@ SIGNATURES = {
     "vcs_fused_p_encode": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     # mv, refs, coeffs, tables, frames_out, G, F, H, W, stream
     "vcs_fused_p_decode": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # the bare-plane pairs, luma (C = 1) and 4:2:0 chroma (C = 2): as the
+    # two above, H and W being the plane's own
+    "vcs_plane_encode": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    "vcs_plane_decode": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    "vcs_c420_encode": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    "vcs_c420_decode": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     # planes, qcoef_out, modes_out, escape_out, recon_out, N, H, W, qstep,
     # stream
     "vcs_intra_encode": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),

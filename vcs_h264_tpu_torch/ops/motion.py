@@ -215,11 +215,10 @@ def source_origin(o: torch.Tensor, extent: int, bs: int) -> torch.Tensor:
     return torch.where(o < 0, o + extent, o).clamp(0, extent - bs)
 
 
-def motion_compensate_plain(mv: torch.Tensor, refs: torch.Tensor, *,
-                            bs: int) -> torch.Tensor:
-    """The plain PyTorch compensation, on any device: mv [G, F, nbh, nbw, 2]
-    (dx, dy) against per-GOP refs [G, C, H, W] -> [G, F, C, H, W] in the
-    refs' dtype.
+def gather_operands(mv: torch.Tensor, refs: torch.Tensor, bs: int):
+    """The operands of the `torch.gather` that compensates in block-major
+    order: (refs viewed [G, F, C, H*W], the flat int64 source index
+    [G, F, C, nbh*nbw*bs*bs] of every output sample).
 
     Each block's source origin o = bs * b + d is placed on each axis as
     `lax.dynamic_slice` places it in the JAX package: a negative o first
@@ -237,8 +236,20 @@ def motion_compensate_plain(mv: torch.Tensor, refs: torch.Tensor, *,
     rows = i0[..., None, None] + offs[:, None]              # [G,F,nbh,nbw,bs,1]
     cols = j0[..., None, None] + offs[None, :]              # [G,F,nbh,nbw,1,bs]
     flat = (rows * w + cols).reshape(g, f, 1, -1)           # [G,F,1,nbh*nbw*bs*bs]
-    src = refs.reshape(g, 1, c, h * w).expand(g, f, c, h * w)
-    blocks = torch.gather(src, 3, flat.expand(g, f, c, flat.shape[-1]))
+    return (refs.reshape(g, 1, c, h * w).expand(g, f, c, h * w),
+            flat.expand(g, f, c, flat.shape[-1]))
+
+
+def motion_compensate_plain(mv: torch.Tensor, refs: torch.Tensor, *,
+                            bs: int) -> torch.Tensor:
+    """The plain PyTorch compensation, on any device: mv [G, F, nbh, nbw, 2]
+    (dx, dy) against per-GOP refs [G, C, H, W] -> [G, F, C, H, W] in the
+    refs' dtype. Any vector is accepted; `gather_operands` says where its
+    source block is read."""
+    g, f, nbh, nbw, _ = mv.shape
+    _, c, h, w = refs.shape
+    src, index = gather_operands(mv, refs, bs)
+    blocks = torch.gather(src, 3, index)
     blocks = blocks.reshape(g, f, c, nbh, nbw, bs, bs)
     return blocks.transpose(-3, -2).reshape(g, f, c, h, w)
 
@@ -251,7 +262,7 @@ def motion_compensate_gops(mv: torch.Tensor, refs: torch.Tensor, *, bs: int,
     backend "auto": the K1 kernel on a CUDA tensor (uint8 refs, uint8 out),
     the plain version on a CPU tensor (the refs' dtype). backend "plain":
     the plain version on either. Any vector is accepted; see
-    `motion_compensate_plain` for where its source block is read."""
+    `gather_operands` for where its source block is read."""
     check_backend(backend)
     if mv.ndim != 5 or refs.ndim != 4 or mv.shape[0] != refs.shape[0] \
             or mv.shape[-1] != 2 or refs.shape[-2] % bs \
