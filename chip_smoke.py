@@ -3,6 +3,9 @@
 
     python3 chip_smoke.py [--seed N]
     python3 chip_smoke.py --profile     # device time by kernel, per path
+    python3 chip_smoke.py --earlier DIR # also time an earlier version of
+                                        # K2 and K5 (DIR holds its
+                                        # motion_sad.cu, intra_wavefront.cu)
 
 Run from the root of a checkout: it builds the CUDA kernels from
 `vcs_h264_tpu_torch/csrc/` with nvcc and imports nothing of JAX or of the JAX
@@ -15,10 +18,14 @@ package. Phases, each of which exits nonzero on failure:
      a. K2/K3/K4 at small edge shapes (one block row, frames narrower than
         the search window, partial CTAs, one P-frame, vectors whose source
         origins fall before the top and left edges): vectors identical,
-        K3/K4 within 1 on at most 2 values per shape;
-     b. K5/K6 at small edge shapes (one 4x4 block, one block row, one block
-        column, a ragged plane, a plane built to escape): every output
-        bit-identical, escapes exercised;
+        K3/K4 within 1 on at most 2 values per shape; then K2 alone, both
+        of its kernels, at the shapes its word loads, shifted window copies
+        and static skip can get wrong (`search_edge_phase`): vectors
+        identical;
+     b. K5/K6 at small edge shapes (one 4x4 block, one or two block rows
+        and columns, a ragged plane, a plane built to escape, a plane with
+        more block rows than a CTA has threads; qsteps 1 to 65535): every
+        output bit-identical, escapes exercised;
      c. K2/K3/K4 at 1280x720, 8 GOPs of 3 P-frames: K2 vectors identical; K3
         coefficients within 1 on at most 1e-5 of them; K4 pixels within 1 on
         at most 1e-4 of them;
@@ -81,9 +88,19 @@ package. Phases, each of which exits nonzero on failure:
      g. the luma-only search, CodecConfig.production(intra_qstep=24,
         search_luma_only=True): K2 (at C = 1) and the full-resolution
         K3-K6;
-     fps of a-c as medians of three interleaved runs (decoding the stream
-     from host memory; the .npz save and load are not timed), of d-g from
-     one run each.
+     fps of a-c as medians of three runs, kernel and plain path
+     interleaved (decoding the stream from host memory; the .npz save and
+     load are not timed), of d-g and of b's plain path from one run each.
+
+K2 has two kernels, chosen by shape in its C entry point: the word kernel
+(block sizes 4, 8, 16 on 4-byte boundaries; all main shapes) and the byte
+kernel (everything else). The `sad_search` entry's "earlier_ms" is the byte
+kernel at the main shape, reached through operands one byte off a word
+boundary; with --earlier it is the earlier build's time, as is
+`intra_encode`'s (null without). Both entries carry "redesigned": true,
+the kernels rebuilt since their first version; `intra_encode` and
+`intra_decode` carry "steps", the length of the chain of dependent
+diagonals at the timed shape.
 
 With --profile the script instead runs each path once on the kernels under
 torch.profiler (encode, decode from host memory and the intra decode of the
@@ -124,6 +141,7 @@ ALU_OPS_PER_S = 67e12         # H100 SXM float32 outside the tensor cores,
 DCT_OPS, RCT_OPS, INTRA_ENC_OPS, INTRA_DEC_OPS = 34, 4, 94, 22
 IBPBPBP = ("I", "B", "P", "B", "P", "B", "P")
 B_GOPS = 4                # full IBPBPBP GOPs in the clip
+TALL_H = 4 * 1024 + 8     # a plane with more block rows than any CTA's threads
 
 
 def fail(msg: str) -> None:
@@ -163,7 +181,9 @@ def synthetic_clip(seed: int, n: int) -> list:
     return frames
 
 
-def time_ms(fn, reps: int, warmup: int = 2) -> float:
+def time_ms(fn, reps: int, warmup: int = 2, inner: int = 1) -> float:
+    """Median over `reps` of the time of `inner` calls between two CUDA
+    events, per call."""
     import torch
     for _ in range(warmup):
         fn()
@@ -173,11 +193,19 @@ def time_ms(fn, reps: int, warmup: int = 2) -> float:
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(inner):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / inner)
     return float(np.median(times))
+
+
+def kernel_ms(fn, reps: int = 20) -> float:
+    """A kernel wrapper's time per launch: four launches queue up between
+    the events, so the host's work before a launch (tens of microseconds
+    that vary with the host) hides behind the launch before it."""
+    return time_ms(fn, reps, inner=4)
 
 
 def bound(n_bytes: float, n_ops: float) -> dict:
@@ -239,6 +267,90 @@ def read_counts() -> dict:
     return {k: v for c in counters() for k, v in c.items()}
 
 
+EARLIER = None      # ctypes library of an earlier K2 / K5 build (--earlier)
+EARLIER_MAGIC = False   # its vcs_intra_encode takes the quantiser's magic, shift
+
+
+def load_earlier(src_dir: str) -> None:
+    """Build `motion_sad.cu` and `intra_wavefront.cu` of `src_dir`, an
+    earlier version of the two sources, with the port's nvcc flags into a
+    second library, so that both versions are timed in one run on one card.
+    vcs_sad_search is taken with today's interface, vcs_intra_encode with
+    today's or, where the source names no `magic`, with the one it had
+    before K5 took the quantiser's magic number and shift."""
+    import ctypes
+    global EARLIER, EARLIER_MAGIC
+    from vcs_h264_tpu_torch.ops import _build
+    out = _build.BUILD / "libvcs_earlier.so"
+    _build.BUILD.mkdir(parents=True, exist_ok=True)
+    _build._run_all([[_build.find_nvcc(), *_build.NVCC_FLAGS, "-shared", "-o",
+                      str(out), os.path.join(src_dir, "motion_sad.cu"),
+                      os.path.join(src_dir, "intra_wavefront.cu")]])
+    lib = ctypes.CDLL(str(out))
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.vcs_sad_search.argtypes = list(_build.SIGNATURES["vcs_sad_search"])
+    with open(os.path.join(src_dir, "intra_wavefront.cu")) as f:
+        EARLIER_MAGIC = "magic" in f.read()
+    lib.vcs_intra_encode.argtypes = (
+        list(_build.SIGNATURES["vcs_intra_encode"]) if EARLIER_MAGIC
+        else [p, p, p, p, p, i, i, i, i, p])
+    EARLIER = lib
+
+
+def earlier_search_ms(curs, refs, search: dict):
+    """The earlier build's K2 on these operands: its time, after holding
+    its vectors against today's kernel; None without --earlier."""
+    import torch
+    from vcs_h264_tpu_torch.ops import motion_cuda
+    if EARLIER is None:
+        return None
+    g, f, c, h, w = curs.shape
+    out = torch.empty((g, f, h // search["bs"], w // search["bs"], 2),
+                      dtype=torch.int32, device=curs.device)
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def run():
+        err = EARLIER.vcs_sad_search(
+            curs.data_ptr(), refs.data_ptr(), out.data_ptr(), g, f, c, h, w,
+            search["bs"], search["reach"], search["step"],
+            search["static_threshold"], stream)
+        if err:
+            fail(f"the earlier K2 build: CUDA error {err}")
+    run()
+    if not torch.equal(out, motion_cuda.sad_search(curs, refs, **search)):
+        fail("the earlier K2 build disagrees with today's kernel")
+    return kernel_ms(run)
+
+
+def earlier_encode_ms(planes, qstep: int):
+    """The earlier build's K5 on these planes: its time, after holding
+    its outputs against today's kernel; None without --earlier."""
+    import torch
+    if EARLIER is None:
+        return None
+    n, h, w = planes.shape
+    dev = planes.device
+    outs = (torch.empty((n, h, w), dtype=torch.int16, device=dev),
+            torch.empty((n, h // 4, w // 4), dtype=torch.int8, device=dev),
+            torch.empty((n, h // 4, w // 4), dtype=torch.bool, device=dev),
+            torch.empty((n, h, w), dtype=torch.uint8, device=dev))
+    stream = torch.cuda.current_stream().cuda_stream
+    from vcs_h264_tpu_torch.ops import intra_cuda
+    magic = intra_cuda.quant_magic(qstep) if EARLIER_MAGIC else ()
+
+    def run():
+        err = EARLIER.vcs_intra_encode(
+            planes.data_ptr(), *(t.data_ptr() for t in outs), n, h, w, qstep,
+            *magic, stream)
+        if err:
+            fail(f"the earlier K5 build: CUDA error {err}")
+    run()
+    if not all(torch.equal(a, b) for a, b in
+               zip(outs, intra_cuda.intra_encode(planes, qstep))):
+        fail("the earlier K5 build disagrees with today's kernel")
+    return kernel_ms(run)
+
+
 def edge_vectors(g, f, h, w, bs=8):
     """Vectors whose source origins fall before the top and left edges: -1,
     -bs and -extent-3 on each axis (and 0), in every combination, cycled
@@ -297,6 +409,95 @@ def edge_shape_phase() -> None:
               f"(max |diff|, count) searched/random/before-edge: {worst}")
 
 
+def search_case(rng, g, f, c, h, w, kind: str):
+    """refs and curs for `search_edge_phase`: "static" repeats the
+    reference, "moving" rolls it by (2, -3) and adds noise, "mixed"
+    alternates static, moving and near-threshold frames inside each GOP and
+    freezes the left half of every frame, "flat" is one value everywhere."""
+    import torch
+    if kind == "flat":
+        refs = torch.full((g, c, h, w), 77, dtype=torch.uint8).cuda()
+        return refs[:, None].expand(g, f, c, h, w).contiguous(), refs
+    refs = torch.from_numpy(
+        rng.integers(0, 256, (g, c, h, w), dtype=np.uint8)).cuda()
+    still = refs[:, None].expand(g, f, c, h, w)
+    if kind == "static":
+        return still.contiguous(), refs
+    noise = torch.from_numpy(
+        rng.integers(-12, 13, (g, f, c, h, w)).astype(np.int16)).cuda()
+    moved = (torch.roll(still, (2, -3), dims=(-2, -1)).to(torch.int16)
+             + noise).clamp(0, 255).to(torch.uint8)
+    if kind == "moving":
+        return moved.contiguous(), refs
+    curs = moved.clone()
+    curs[:, 0::3] = still[:, 0::3]                       # static frames
+    curs[:, 2::3] = (still[:, 2::3].to(torch.int16) + noise[:, 2::3]
+                     ).clamp(0, 255).to(torch.uint8)     # near the threshold
+    curs[..., :w // 2] = still[..., :w // 2]
+    return curs.contiguous(), refs
+
+
+def misaligned(t):
+    """A contiguous copy of uint8 `t` that starts one byte after a 4-byte
+    boundary: K2's entry point then takes its byte kernel."""
+    import torch
+    buf = torch.empty(t.numel() + 1, dtype=torch.uint8, device=t.device)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    assert out.data_ptr() % 4 == 1 and out.is_contiguous()
+    return out
+
+
+def search_edge_phase() -> None:
+    """Phase 3a, K2 alone: both kernels against the plain search, vectors
+    identical. Block sizes 4, 8, 16 (word kernel) and 2, 6 (byte kernel);
+    steps 1, 2, 3; reaches 5, 6, 8, 16 (5 and 6 put the window's first
+    column off a word boundary); C 1, 2, 3; widths 24 to 136, so word loads
+    meet the frame's edge and frames are narrower than the window; all
+    blocks static, none static, and static, moving and near-threshold
+    frames alternating inside a GOP (the skip is per frame, the window is
+    staged per GOP); thresholds -1 (nothing static), 0, 666, 2000 and the
+    maximum SAD; a flat frame, where every candidate ties and the first in
+    row-major order must win; every shape again one byte off a word
+    boundary (the byte kernel)."""
+    import torch
+    from vcs_h264_tpu_torch.ops import motion, motion_cuda
+
+    rng = np.random.default_rng(7)
+    shapes = ((2, 4, 3, 48, 72, {}), (1, 3, 1, 8, 64, {}),
+              (2, 2, 3, 48, 24, {}), (1, 3, 3, 40, 136, {}),
+              (1, 3, 2, 40, 40, dict(reach=8, step=2)),
+              (1, 2, 3, 32, 48, dict(bs=4, reach=8, step=1)),
+              (1, 2, 1, 64, 80, dict(bs=16, reach=16, step=2)),
+              (1, 2, 3, 32, 64, dict(bs=16)),
+              (1, 3, 3, 24, 40, dict(reach=6)),
+              (1, 2, 3, 40, 104, dict(reach=5, step=1)),
+              (1, 2, 1, 24, 36, dict(bs=6, reach=8, step=2)),
+              (1, 2, 3, 16, 24, dict(bs=2, reach=4, step=1)))
+    n = 0
+    for g, f, c, h, w, kw in shapes:
+        bs = kw.get("bs", 8)
+        for kind in ("static", "moving", "mixed", "flat"):
+            curs, refs = search_case(rng, g, f, c, h, w, kind)
+            pairs = [(curs, refs), (misaligned(curs), misaligned(refs))]
+            for th in (-1, 0, 2000 // 3, 2000, c * 255 * bs * bs):
+                want = motion.motion_search_plain(curs, refs,
+                                                  static_threshold=th, **kw)
+                for cu, rf in pairs:
+                    got = motion_cuda.sad_search(cu, rf, static_threshold=th,
+                                                 **kw)
+                    if not torch.equal(got, want):
+                        fail(f"K2 differs from the plain search at "
+                             f"{(g, f, c, h, w)} {kw}, {kind} frames, "
+                             f"threshold {th}, operands at "
+                             f"{cu.data_ptr() % 4} mod 4")
+                    n += 1
+    print(f"[edge K2] {n} searches identical to the plain search: word and "
+          "byte kernel, bs 2-16, steps 1-3, reaches 5-16, C 1-3, widths "
+          "24-136, static / moving / mixed / flat frames, thresholds -1 to "
+          "the maximum")
+
+
 def escape_plane(h, w):
     """A plane on which lossy intra (any qstep) and the lossless codec both
     escape: the 128 border reconstructs exactly, the 0 interior then
@@ -310,11 +511,13 @@ def escape_plane(h, w):
     return np.kron(blk, np.ones((4, 4), int)).astype(np.uint8)
 
 
-def check_intra(planes, qstep: int, what: str):
+def check_intra(planes, qstep: int, what: str, full: bool = True):
     """K5 and K6 (lossy and lossless) against their plain versions on
     uint8 planes [N, H, W] on the card: every output identical. Returns
     (K5 outputs, the lossless decode's inputs (residual, modes, escape),
-    the largest |kernel - plain| of K5 and of K6)."""
+    the largest |kernel - plain| of K5 and of K6). With `full` False only
+    the plain encode runs: K5 against it, and K6 lossy on K5's payload
+    against K5's recon; the other two returns are then None."""
     import torch
     from vcs_h264_tpu_torch.ops import intra, intra_cuda
 
@@ -332,9 +535,13 @@ def check_intra(planes, qstep: int, what: str):
         if err5:
             fail(f"K5 {name} differs from the plain version ({what})")
     k6 = intra_cuda.intra_decode(*k5[:3], qstep, True)
-    err6 = err(k6, intra.decode_planes_plain(*k5[:3], qstep, True))
-    if err6 or not torch.equal(k6, k5[3]):
+    if not torch.equal(k6, k5[3]):
         fail(f"K6 lossy decode differs from K5's recon ({what})")
+    if not full:
+        return k5, None, None
+    err6 = err(k6, intra.decode_planes_plain(*k5[:3], qstep, True))
+    if err6:
+        fail(f"K6 lossy decode differs from the plain version ({what})")
     res, modes, esc = intra.luma4x4_codec(planes)
     lossless = (res.to(torch.int16).contiguous(), modes.to(torch.int8)
                 .contiguous(), esc.contiguous())
@@ -347,18 +554,24 @@ def check_intra(planes, qstep: int, what: str):
 
 def intra_edge_phase() -> None:
     """Phase 3b: K5/K6 vs plain versions at small shapes: one block, one
-    block row, one block column (a plane taller than its diagonals are
-    long), a ragged plane, and planes built to escape."""
+    and two block rows, one and two block columns (planes taller than their
+    diagonals are long), a ragged plane, qsteps from 1 to 65535 (the
+    quantiser divides by multiplication), planes built to escape, and a
+    plane with more block rows than a CTA has threads."""
     import torch
 
     rng = np.random.default_rng(3)
-    for n, h, w in ((1, 4, 4), (2, 8, 64), (3, 64, 8), (2, 20, 36)):
+    for n, h, w in ((1, 4, 4), (2, 8, 64), (3, 64, 8), (2, 20, 36),
+                    (2, 4, 40), (2, 48, 4), (1, 8, 8)):
         planes = torch.from_numpy(
             rng.integers(0, 256, (n, h, w), dtype=np.uint8)).cuda()
         for qstep in (8, QSTEP):
             check_intra(planes, qstep, f"{n}x{h}x{w} q{qstep}")
+        for qstep in (1, 2, 255, 65535):
+            check_intra(planes, qstep, f"{n}x{h}x{w} q{qstep}", full=False)
         print(f"[edge intra {n}x{h}x{w}] K5/K6 identical to plain at "
-              f"qstep 8 and {QSTEP}, K6 lossless identical")
+              f"qstep 8 and {QSTEP}, K6 lossless identical; K5 identical "
+              "to plain and K6 to K5's recon at qsteps 1, 2, 255, 65535")
     planes = torch.from_numpy(np.stack([
         escape_plane(32, 48),
         rng.integers(0, 256, (32, 48), dtype=np.uint8)])).cuda()
@@ -369,6 +582,16 @@ def intra_edge_phase() -> None:
           f"lossy {n_esc}, lossless {n_esc_l}")
     if n_esc == 0 or n_esc_l == 0:
         fail("the escape planes did not escape")
+    for n, h, w, what in (
+            (1, TALL_H, 8, "more block rows than a CTA of K5 (256) or K6 "
+             "(1024) has threads"),
+            (40, 264, 8, "40 planes of 66 block rows, a partly filled "
+             "third warp")):
+        planes = torch.from_numpy(
+            rng.integers(0, 256, (n, h, w), dtype=np.uint8)).cuda()
+        check_intra(planes, QSTEP, f"{n}x{h}x{w}", full=False)
+        print(f"[edge intra {n}x{h}x{w}] K5 identical to plain, K6 to K5's "
+              f"recon ({what})")
 
 
 def intra_kernel_phase(planes, card: str, plain_reps: int = 3):
@@ -387,33 +610,63 @@ def intra_kernel_phase(planes, card: str, plain_reps: int = 3):
           f"{float((q != 0).float().mean()):.4f}")
     print("[K6 intra_decode] lossy decode identical to K5's recon; "
           "lossless decode identical to the source planes")
+    steps = 2 * (h // 4 - 1) + w // 4      # the chain of dependent diagonals
     results = {
         "intra_encode": dict(
-            max_abs_err=err5,
-            ms=time_ms(lambda: intra_cuda.intra_encode(planes, QSTEP), 20),
+            max_abs_err=err5, steps=steps, redesigned=True,
+            earlier_ms=earlier_encode_ms(planes, QSTEP),
+            ms=kernel_ms(lambda: intra_cuda.intra_encode(planes, QSTEP)),
             plain_ms=time_ms(lambda: intra.intra_encode4x4_lossy_plain(
                 planes, QSTEP), plain_reps, warmup=1),
             **bound(nbytes(planes, *k5), planes.numel() * INTRA_ENC_OPS),
             library_ms=None),
         "intra_decode": dict(
-            max_abs_err=err6,
-            ms=time_ms(lambda: intra_cuda.intra_decode(q, modes, esc, QSTEP,
-                                                       True), 20),
+            max_abs_err=err6, steps=steps,
+            ms=kernel_ms(lambda: intra_cuda.intra_decode(q, modes, esc,
+                                                         QSTEP, True)),
             plain_ms=time_ms(lambda: intra.decode_planes_plain(
                 q, modes, esc, QSTEP, True), plain_reps, warmup=1),
             **bound(nbytes(q, modes, esc, rec),
                     planes.numel() * INTRA_DEC_OPS),
             library_ms=None),
     }
-    lossless_ms = time_ms(lambda: intra_cuda.intra_decode(*lossless, 0,
-                                                          False), 20)
+    lossless_ms = kernel_ms(lambda: intra_cuda.intra_decode(*lossless, 0,
+                                                            False))
     for name, r in results.items():
-        print(f"[time {name}] kernel {r['ms']:.4f} ms, plain "
-              f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms by "
-              f"{r['bound_by']}, at N={n} {w}x{h} qstep {QSTEP} ({card})")
+        earlier = r.get("earlier_ms")
+        print(f"[time {name}] kernel {r['ms']:.4f} ms, "
+              f"{r['ms'] / steps * 1e3:.3f} us for each of {steps} steps"
+              + ("" if earlier is None
+                 else f", the earlier build {earlier:.4f} ms")
+              + f", plain {r['plain_ms']:.4f} ms, bound "
+              f"{r['bound_ms']:.4f} ms by {r['bound_by']}, at N={n} {w}x{h} "
+              f"qstep {QSTEP} ({card})")
     print(f"[time intra_decode lossless] kernel {lossless_ms:.4f} ms at "
           f"N={n} {w}x{h} ({card})")
     return results
+
+
+def search_history(curs, refs, mv_plain, search: dict, what: str,
+                   card: str) -> dict:
+    """K2's byte kernel at a main shape (operands one byte off a word
+    boundary; the aligned ones above took the word kernel): vectors
+    identical to the plain search, and its time, which is the kernel's
+    time before the word kernel came. With --earlier the earlier build's
+    time stands instead."""
+    import torch
+    from vcs_h264_tpu_torch.ops import motion_cuda
+    cu, rf = misaligned(curs), misaligned(refs)
+    if not torch.equal(motion_cuda.sad_search(cu, rf, **search), mv_plain):
+        fail(f"K2's byte kernel differs from the plain search ({what})")
+    byte_ms = kernel_ms(lambda: motion_cuda.sad_search(cu, rf, **search), 10)
+    earlier = earlier_search_ms(curs, refs, search)
+    print(f"[K2 sad_search, {what}] the word kernel ran at this shape; the "
+          f"byte kernel, identical to the plain search too, takes "
+          f"{byte_ms:.4f} ms"
+          + ("" if earlier is None
+             else f", the earlier build {earlier:.4f} ms") + f" ({card})")
+    return dict(redesigned=True,
+                earlier_ms=byte_ms if earlier is None else earlier)
 
 
 def kernel_phase(frames, card: str):
@@ -446,10 +699,11 @@ def kernel_phase(frames, card: str):
         fail("K2 motion vectors differ from the plain version")
     results["sad_search"] = dict(
         max_abs_err=err,
-        ms=time_ms(lambda: motion_cuda.sad_search(curs, refs, **search), 20),
+        ms=kernel_ms(lambda: motion_cuda.sad_search(curs, refs, **search)),
         plain_ms=time_ms(lambda: motion.motion_search_plain(curs, refs,
                                                              **search), 5),
-        **search_bound(curs, refs, mv_p, search), library_ms=None)
+        **search_bound(curs, refs, mv_p, search), library_ms=None,
+        **search_history(curs, refs, mv_p, search, "C 3", card))
 
     # K3/K4 on the searched vectors and on random in-reach vectors (the
     # latter exercise the source clamp at the frame edges)
@@ -480,13 +734,13 @@ def kernel_phase(frames, card: str):
     co = inter_cuda.encode_p_coeffs_plain(mv_p, refs, curs, qf)
     results["fused_p_encode"] = dict(
         max_abs_err=enc_err,
-        ms=time_ms(lambda: inter_cuda.fused_p_encode(mv_p, refs, curs, qf), 20),
+        ms=kernel_ms(lambda: inter_cuda.fused_p_encode(mv_p, refs, curs, qf)),
         plain_ms=time_ms(lambda: inter_cuda.encode_p_coeffs_plain(
             mv_p, refs, curs, qf), 10),
         **coded_bound(mv_p, refs, curs, co, True), library_ms=None)
     results["fused_p_decode"] = dict(
         max_abs_err=dec_err,
-        ms=time_ms(lambda: inter_cuda.fused_p_decode(mv_p, refs, co, qf), 20),
+        ms=kernel_ms(lambda: inter_cuda.fused_p_decode(mv_p, refs, co, qf)),
         plain_ms=time_ms(lambda: inter_cuda.decode_p_frames_plain(
             mv_p, refs, co, qf), 10),
         **coded_bound(mv_p, refs, co, curs, True), library_ms=None)
@@ -568,11 +822,11 @@ def compensate_kernel_phase(frames, card: str):
             fail(f"torch.gather differs from K1 at the {name} shape")
         out[name] = dict(
             max_abs_err=err,
-            ms=time_ms(lambda: motion_cuda.compensate(mv, r, bs=8), 50),
+            ms=kernel_ms(lambda: motion_cuda.compensate(mv, r, bs=8), 50),
             plain_ms=time_ms(lambda: motion.motion_compensate_plain(
                 mv, r, bs=8), 20),
             **bound(nbytes(mv, r, got), 0),
-            library_ms=time_ms(lambda: torch.gather(src, 3, idx), 20))
+            library_ms=kernel_ms(lambda: torch.gather(src, 3, idx)))
         del src, idx
         print_times({f"compensate, {name} shape": out[name]},
                     f"G={mv.shape[0]} F={mv.shape[1]} {W}x{H}, identical to "
@@ -674,11 +928,12 @@ def plane_kernel_phase(frames, card: str):
     mv_p = motion.motion_search_plain(y_cur, y_ref, **search)
     if not torch.equal(mv, mv_p):
         fail("K2 at C = 1 differs from the plain search at 720p")
-    k2 = dict(ms=time_ms(lambda: motion_cuda.sad_search(y_cur, y_ref,
-                                                        **search), 20),
+    k2 = dict(ms=kernel_ms(lambda: motion_cuda.sad_search(y_cur, y_ref,
+                                                          **search)),
               plain_ms=time_ms(lambda: motion.motion_search_plain(
                   y_cur, y_ref, **search), 5),
-              **search_bound(y_cur, y_ref, mv, search), library_ms=None)
+              **search_bound(y_cur, y_ref, mv, search), library_ms=None,
+              **search_history(y_cur, y_ref, mv_p, search, "C 1", card))
     print(f"[K2 sad_search, C 1] vectors identical to the plain search; "
           f"nonzero vectors {float((mv != 0).any(-1).float().mean()):.4f}")
     print_times({"sad_search, C 1": k2}, f"G={GOPS} F={P_PER_GOP} {W}x{H}",
@@ -710,12 +965,12 @@ def plane_kernel_phase(frames, card: str):
         co = enc_plain(v, refs, curs, qf)
         results[f"{name}_encode"] = dict(
             max_abs_err=0,
-            ms=time_ms(lambda: enc(v, refs, curs, qf), 20),
+            ms=kernel_ms(lambda: enc(v, refs, curs, qf)),
             plain_ms=time_ms(lambda: enc_plain(v, refs, curs, qf), 10),
             **coded_bound(v, refs, curs, co, False), library_ms=None)
         results[f"{name}_decode"] = dict(
             max_abs_err=0,
-            ms=time_ms(lambda: dec(v, refs, co, qf), 20),
+            ms=kernel_ms(lambda: dec(v, refs, co, qf)),
             plain_ms=time_ms(lambda: dec_plain(v, refs, co, qf), 10),
             **coded_bound(v, refs, co, curs, False), library_ms=None)
         print(f"[{name}_encode / {name}_decode] identical to the plain "
@@ -831,17 +1086,20 @@ def stream_diff(video, video_plain):
 
 def main_path_phase(frames, card: str, cfg, label: str, want, forbid=(),
                     runs: int = 3, exact: bool = False,
-                    tf32_check: bool = False, psnr_floor: float = 30.0):
+                    tf32_check: bool = False, psnr_floor: float = 30.0,
+                    plain_once: bool = False):
     """Phase 4: the port's user entry points, kernels vs plain versions.
     `want` kernels must launch in the counted run, `forbid` ones must not;
     `exact`: the decoded frames must be identical to the plain path's;
     `tf32_check`: an encode with TF32 allowed must give identical
-    residuals; `psnr_floor`: the least plausible P/B-frame PSNR. Returns
-    the counted run's launch counts."""
+    residuals; `psnr_floor`: the least plausible P/B-frame PSNR;
+    `plain_once`: the plain path, seconds long where it runs the plain
+    wavefront, is run for the comparison only and timed by that one run.
+    Returns the counted run's launch counts."""
     import torch
 
     run_codec(frames, "auto", cfg, via_npz=False)     # warm-up
-    if runs > 1:
+    if runs > 1 and not plain_once:
         run_codec(frames, "plain", cfg, via_npz=False)
     reset_counts()
     decoded, video, i_dec, *t_k = run_codec(frames, "auto", cfg)
@@ -856,7 +1114,8 @@ def main_path_phase(frames, card: str, cfg, label: str, want, forbid=(),
                                                           cfg)
     times = {"auto": [t_k], "plain": [t_p]}
     if runs == 3:       # two more runs of each path, interleaved
-        for backend in ("plain", "auto", "auto", "plain"):
+        for backend in (("auto", "auto") if plain_once
+                        else ("plain", "auto", "auto", "plain")):
             times[backend].append(run_codec(frames, backend, cfg,
                                             via_npz=False)[3:])
 
@@ -959,7 +1218,7 @@ def main_paths() -> list:
          dict(want=p_kernels)),
         (CodecConfig.production(intra_qstep=QSTEP),
          f"main path, intra_qstep {QSTEP}",
-         dict(want=p_kernels + intra, psnr_floor=20.0)),
+         dict(want=p_kernels + intra, psnr_floor=20.0, plain_once=True)),
         (CodecConfig(), "reference mode",
          dict(want=("sad_search", "compensate"),
               forbid=("fused_p_encode", "fused_p_decode"), exact=True,
@@ -1020,6 +1279,8 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile", action="store_true",
                     help="profile each path once instead of checking")
+    ap.add_argument("--earlier", metavar="DIR",
+                    help="time the K2 and K5 of the sources in DIR as well")
     args = ap.parse_args()
 
     import torch
@@ -1042,6 +1303,8 @@ def main() -> int:
           f"({'nvcc' if _build.build_seconds is not None else 'cached'}) -> "
           f"{_build.library_path().name}")
 
+    if args.earlier:
+        load_earlier(args.earlier)
     frames = synthetic_clip(args.seed, CLIP_FRAMES)
     if args.profile:
         from torch.profiler import ProfilerActivity, profile
@@ -1052,6 +1315,7 @@ def main() -> int:
         return 0
 
     edge_shape_phase()
+    search_edge_phase()
     intra_edge_phase()
     compensate_edge_phase()
     plane_edge_phase()

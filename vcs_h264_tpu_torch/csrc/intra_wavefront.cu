@@ -32,18 +32,46 @@
 // What bounds them on an H100: the chain of T = 2 (nbh - 1) + nbw dependent
 // diagonals (678 at 1280x720), not bytes or operations. Each plane reads its
 // 1 byte per pixel once and writes 2 + 1 bytes per pixel (qcoef, recon) once,
-// a few MB for a 24-plane batch; the per-block work (9 predictors with their
-// SADs, two 4x4 integer transforms, 16 divisions) is a few thousand integer
-// operations. Design: one CTA per plane and one thread per block row (a
+// a few MB for a 24-plane batch. What a step costs is the integer instruction
+// stream of one block, run by the few warps of the one SM that holds the
+// plane, and the stores of its outputs: the threads of a warp sit in
+// different block rows, so every store of a warp goes to 32 lines.
+//
+// Design, both kernels: one CTA per plane and one thread per block row (a
 // thread loops over rows when a plane has more rows than the CTA threads);
 // at step t the thread of row bi codes block (bi, t - 2 bi), then the CTA
 // meets at one __syncthreads(). The carry stays on chip in shared memory:
 // per block row, a ring of the bottom rows of its last four blocks (the row
 // below reads u, ur and the ul corner from it one to three steps later) and
 // the right column of its last block (the row's own next block reads l).
-// Predictors, SADs, selection and transforms stay in registers. A 24-plane
-// batch fills only 24 of the 132 SMs; splitting a plane across CTAs needs a
-// barrier between CTAs per diagonal and is left for later work.
+//
+// K5 is built to shorten that instruction stream (about 900 instructions a
+// block, from about 1 400) and to take device memory off the step:
+//   * pixels travel four to a 32-bit word: the original block is four words,
+//     the carry one word per ring slot and one for the left column (5 words
+//     a block row, K6 keeps 20 ints), recon rows are stored as words;
+//   * the nine predictors are formed as scalars once (every value lies in
+//     0..255) and packed into rows, shared sub-expressions between the modes
+//     computed once, diagonal modes cut out of a packed sequence with
+//     __funnelshift_r; a predictor's SAD is four vabsdiff4 with accumulate;
+//   * the forward quantiser's 16 divisions by 800 qstep are one __umulhi and
+//     a shift each, with a magic number the wrapper computes for the launch
+//     (ops/intra_cuda.py:quant_magic), exact for every numerator the
+//     transform can produce;
+//   * the original pixels depend on nothing the chain computes, so a thread
+//     loads those of its row's next block a step ahead, and no step waits
+//     for device memory;
+//   * a row thread stores nothing to device memory. It leaves a block's
+//     outputs in shared memory, eight blocks of a row to a group, and two
+//     more warps of the CTA, which code nothing, write each finished group
+//     out whole: a pixel row's 32 bytes of recon and 64 of qcoef side by
+//     side, a few sectors an instruction. Ten stores a block to lines of
+//     their own had cost a third of the kernel's time.
+// A 24-plane batch still fills only 24 of the 132 SMs. Cutting a plane into
+// slices of block rows over several CTAs, the carry handed down through
+// device memory with a count per slice, gave identical results and no gain
+// (the fences of the hand-over cost what the idle SMs gave), so it is not
+// here.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -52,7 +80,13 @@ namespace {
 
 constexpr int kFill = 128;
 constexpr int kSentinelKey = 16 * 255 * 16;
-constexpr int kRowInts = 20;  // shared ints per block row: ring 4 x 4, left column 4
+constexpr int kRowInts = 20;     // K6: shared ints per block row, ring 4 x 4 and left column 4
+constexpr int kEncRowWords = 5;  // K5: packed words per block row, ring 4 and left column 1
+constexpr int kEncThreads = 320; // K5: most threads of a CTA; a thread may hold 204 registers
+constexpr int kFlushWarps = 2;   // K5: warps of a CTA that write the staged outputs out
+constexpr int kGroup = 8;        // K5: blocks of a row whose outputs are written out together
+constexpr int kTileWords = 12 * kGroup + 4;      // K5: a staged group, see stage_block
+constexpr int kStageWords = 2 * kTileWords + 1;  // K5: two groups a block row; odd, so rows spread over the banks
 
 struct Neighbors {
   int u[4], l[4], ur[4], ul;
@@ -184,27 +218,6 @@ __device__ __forceinline__ void ci4x2(int* v, int s) {
   v[3 * s] = 2 * a - 2 * b + 2 * c - d;
 }
 
-// sign(a) * ((2 |a| + b) // (2 b)) for b > 0
-__device__ __forceinline__ int iround_div(int a, int b) {
-  const unsigned m = static_cast<unsigned>(a < 0 ? -a : a);
-  const int v = static_cast<int>((2u * m + static_cast<unsigned>(b)) / (2u * static_cast<unsigned>(b)));
-  return a < 0 ? -v : v;
-}
-
-// x (residual, in place) -> quantized coefficients
-__device__ __forceinline__ void fwd_quant(int x[16], int qstep) {
-#pragma unroll
-  for (int k = 0; k < 4; ++k) cf4(x + k, 4);      // columns: Cf X
-#pragma unroll
-  for (int i = 0; i < 4; ++i) cf4(x + 4 * i, 1);  // rows: (Cf X) Cf^T
-  const int b = 400 * qstep;
-#pragma unroll
-  for (int i = 0; i < 16; ++i) {
-    const int g = ((i >> 2) & 1 ? 4 : 5) * ((i & 1) ? 4 : 5);  // 400 G
-    x[i] = iround_div(x[i] * g, b);
-  }
-}
-
 // q (quantized coefficients, in place) -> reconstructed residual
 __device__ __forceinline__ void dequant_inv(int q[16], int qstep) {
 #pragma unroll
@@ -249,77 +262,338 @@ __device__ __forceinline__ void store_carry(int* ring, int* left, int bi, int t,
   }
 }
 
-// grid (N), block (threads), dynamic shared memory nbh * kRowInts ints
-__global__ void intra_encode_kernel(const uint8_t* __restrict__ planes, int16_t* __restrict__ qcoef,
-                                    int8_t* __restrict__ modes, uint8_t* __restrict__ escape,
-                                    uint8_t* __restrict__ recon, int H, int W, int qstep) {
+// ---- K5: the encode, on packed words -------------------------------------
+
+struct Quantiser {
+  int qstep;
+  int half;         // 400 qstep, the rounding term of the forward quantiser
+  uint32_t magic;   // floor(n / (800 qstep)) == __umulhi(n, magic) >> shift
+  int shift;        //   for every numerator n the transform can produce
+};
+
+// four pixels of a row, byte c = column c
+__device__ __forceinline__ uint32_t pk(int a, int b, int c, int d) {
+  return static_cast<uint32_t>(a) | (static_cast<uint32_t>(b) << 8) |
+         (static_cast<uint32_t>(c) << 16) | (static_cast<uint32_t>(d) << 24);
+}
+__device__ __forceinline__ uint32_t rep4(int v) { return static_cast<uint32_t>(v) * 0x01010101u; }
+__device__ __forceinline__ int byte_of(uint32_t w, int k) { return static_cast<int>((w >> (8 * k)) & 255u); }
+
+// acc + the sum of the four absolute byte differences of a and b
+__device__ __forceinline__ uint32_t sad4(uint32_t a, uint32_t b, uint32_t acc) {
+  uint32_t d;
+  asm("vabsdiff4.u32.u32.u32.add %0, %1, %2, %3;" : "=r"(d) : "r"(a), "r"(b), "r"(acc));
+  return d;
+}
+
+// The nine predictors as packed rows p[mode][row], from packed neighbours:
+// U, UR the rows above and above-right, L the column to the left (byte k =
+// row k), ul the corner. Every predicted value lies in 0..255 (the weights
+// of each sum add up to 1 after the floor divisions, the wraps only lower
+// it), so a byte holds it. The formulas are those of predict().
+__device__ __forceinline__ void predict_all(uint32_t U, uint32_t L, uint32_t UR, int ul, bool a_u,
+                                            bool a_l, bool a_ur, uint32_t p[9][4]) {
+  const int u0 = byte_of(U, 0), u1 = byte_of(U, 1), u2 = byte_of(U, 2), u3 = byte_of(U, 3);
+  const int l0 = byte_of(L, 0), l1 = byte_of(L, 1), l2 = byte_of(L, 2), l3 = byte_of(L, 3);
+  const int r0 = byte_of(UR, 0), r1 = byte_of(UR, 1), r2 = byte_of(UR, 2), r3 = byte_of(UR, 3);
+  // 0 vertical, 1 horizontal
+#pragma unroll
+  for (int r = 0; r < 4; ++r) p[0][r] = U;
+  p[1][0] = rep4(l0); p[1][1] = rep4(l1); p[1][2] = rep4(l2); p[1][3] = rep4(l3);
+  {  // 2 dc: u + l wraps when both came from the plane
+    const bool wrap = a_u && a_l;
+    const int v0 = u0 + l0, v1 = u1 + l1, v2 = u2 + l2, v3 = u3 + l3;
+    const int s = wrap ? (v0 & 255) + (v1 & 255) + (v2 & 255) + (v3 & 255) : v0 + v1 + v2 + v3;
+    const uint32_t dc = rep4(s >> 3);
+#pragma unroll
+    for (int r = 0; r < 4; ++r) p[2][r] = dc;
+  }
+  {  // 3 down-left over e = u, ur: row r = t[r .. r + 3]
+    const int t6 = (r2 >> 2) + (w3(r3, a_ur) >> 2);
+    const uint32_t lo = pk(f3(u0, u1, u2), f3(u1, u2, u3), f3(u2, u3, r0), f3(u3, r0, r1));
+    const uint32_t hi = pk(f3(r0, r1, r2), f3(r1, r2, r3), t6, 0);
+    p[3][0] = lo;
+#pragma unroll
+    for (int r = 1; r < 4; ++r) p[3][r] = __funnelshift_r(lo, hi, 8 * r);
+  }
+  const int d0 = f3(l1, l2, l3), d1 = f3(l0, l1, l2);
+  const int d2 = (u0 >> 2) + (l0 >> 1) + (l1 >> 2);
+  const int d3 = (ul >> 2) + (u0 >> 1) + (l0 >> 2);
+  const int d4 = f3(ul, u0, u1), d5 = f3(u0, u1, u2), d6 = f3(u1, u2, u3);
+  const int ulu = (u0 >> 2) + (ul >> 1) + (l0 >> 2);   // b0 of mode 5, a1 of mode 6
+  {  // 4 down-right: row r = d[3 - r .. 6 - r]
+    const uint32_t lo = pk(d0, d1, d2, d3), hi = pk(d4, d5, d6, 0);
+    p[4][3] = lo;
+#pragma unroll
+    for (int r = 0; r < 3; ++r) p[4][r] = __funnelshift_r(lo, hi, 8 * (3 - r));
+  }
+  {  // 5 vertical-right: a | b | c0 a0 a1 a2 | d0 b0 b1 b2
+    const uint32_t a = pk(f2(ul, u0), f2(u0, u1), f2(u1, u2), f2(u2, u3));
+    const uint32_t b = pk(ulu, d4, d5, d6);
+    p[5][0] = a;
+    p[5][1] = b;
+    p[5][2] = (a << 8) | static_cast<uint32_t>(f3(ul, l0, l1));
+    p[5][3] = (b << 8) | static_cast<uint32_t>(d1);
+  }
+  {  // 6 horizontal-down: a0 a1 a2 a3 | b0 b1 a0 a1 | c0 c1 b0 b1 | d0 d1 c0 c1
+    const uint32_t r0w = pk(f2(ul, l0), ulu, d4, d5);
+    const uint32_t r1w = (r0w << 16) | pk(f2(l0, l1), f3(ul, l1, l2), 0, 0);
+    const uint32_t r2w = (r1w << 16) | pk(f2(l1, l2), d1, 0, 0);
+    p[6][0] = r0w;
+    p[6][1] = r1w;
+    p[6][2] = r2w;
+    p[6][3] = (r2w << 16) | pk(f2(l2, l3), d0, 0, 0);
+  }
+  {  // 7 vertical-left: a0..a3 | b0..b3 | a1..a4 | b1..b4
+    const uint32_t a = pk(f2(u0, u1), f2(u1, u2), f2(u2, u3), f2(u3, r0));
+    const uint32_t b = pk(d5, d6, f3(u2, u3, r0), f3(u3, r0, r1));
+    p[7][0] = a;
+    p[7][1] = b;
+    p[7][2] = (a >> 8) | (static_cast<uint32_t>(f2(r0, r1)) << 24);
+    p[7][3] = (b >> 8) | (static_cast<uint32_t>(f3(r0, r1, r2)) << 24);
+  }
+  {  // 8 horizontal-up: a0 a1 a2 a3 | a2 a3 b2 b3 | b2 b3 c c | c c c c;
+     // 3 l[3] wraps when l came from the plane
+    const int b2 = f2(l2, l3), b3 = (l2 >> 2) + (w3(l3, a_l) >> 2);
+    const uint32_t r0w = pk(f2(l0, l1), d1, f2(l1, l2), d0);
+    p[8][0] = r0w;
+    p[8][1] = (r0w >> 16) | pk(0, 0, b2, b3);
+    p[8][2] = pk(b2, b3, l3, l3);
+    p[8][3] = rep4(l3);
+  }
+}
+
+// sign(n) * ((2 |n| + half) // (2 half)) by multiplication
+__device__ __forceinline__ int iround_quant(int n, const Quantiser& q) {
+  const uint32_t m = static_cast<uint32_t>(n < 0 ? -n : n);
+  const int v = static_cast<int>(__umulhi(2u * m + static_cast<uint32_t>(q.half), q.magic) >> q.shift);
+  return n < 0 ? -v : v;
+}
+
+// Code block (bi, bj) of step t: o = the four original rows; neighbours from
+// the packed carry (ring[row * 4 + slot] the bottom pixel row of the row's
+// block of step slot mod 4, left[row] the right column of its last block);
+// writes the block's carry and returns the quantized coefficients x, the
+// packed reconstruction rows rec, and the mode with bit 7 set for an escape.
+__device__ __forceinline__ int encode_block(const uint32_t o[4], uint32_t* ring, uint32_t* left,
+                                            int bi, int bj, int t, int nbw, const Quantiser& q,
+                                            int x[16], uint32_t rec[4]) {
+  const bool a_u = bi >= 1, a_l = bj >= 1, a_ur = a_u && bj < nbw - 1;
+  const uint32_t* up = ring + (a_u ? bi - 1 : 0) * 4;
+  const uint32_t U = a_u ? up[(t - 2) & 3] : rep4(kFill);
+  const uint32_t L = a_l ? left[bi] : rep4(kFill);
+  const uint32_t UR = a_ur ? up[(t - 1) & 3] : rep4(byte_of(U, 3));
+  const int ul = (a_u && a_l) ? byte_of(up[(t - 3) & 3], 3) : kFill;
+
+  uint32_t p[9][4];
+  predict_all(U, L, UR, ul, a_u, a_l, a_ur, p);
+  int best = kSentinelKey;
+  uint32_t bp[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+  for (int m = 0; m < 9; ++m) {
+    uint32_t sad = 0;
+#pragma unroll
+    for (int r = 0; r < 4; ++r) sad = sad4(p[m][r], o[r], sad);
+    const int key = static_cast<int>(sad) * 16 + m + 1;
+    if (key < best) {
+      best = key;
+#pragma unroll
+      for (int r = 0; r < 4; ++r) bp[r] = p[m][r];
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 16; ++i) x[i] = byte_of(o[i >> 2], i & 3) - byte_of(bp[i >> 2], i & 3);
+#pragma unroll
+  for (int k = 0; k < 4; ++k) cf4(x + k, 4);      // columns: Cf X
+#pragma unroll
+  for (int i = 0; i < 4; ++i) cf4(x + 4 * i, 1);  // rows: (Cf X) Cf^T
+#pragma unroll
+  for (int i = 0; i < 16; ++i) {
+    const int g = ((i >> 2) & 1 ? 4 : 5) * ((i & 1) ? 4 : 5);  // 400 G
+    x[i] = iround_quant(x[i] * g, q);
+  }
+  int r[16];
+#pragma unroll
+  for (int i = 0; i < 16; ++i) r[i] = x[i];
+  dequant_inv(r, q.qstep);
+#pragma unroll
+  for (int rr = 0; rr < 4; ++rr) {
+    int v[4];
+#pragma unroll
+    for (int c = 0; c < 4; ++c) v[c] = min(max(byte_of(bp[rr], c) + r[4 * rr + c], 0), 255);
+    rec[rr] = pk(v[0], v[1], v[2], v[3]);
+  }
+  ring[bi * 4 + (t & 3)] = rec[3];
+  left[bi] = pk(byte_of(rec[0], 3), byte_of(rec[1], 3), byte_of(rec[2], 3), byte_of(rec[3], 3));
+  return best == kSentinelKey ? 128 : (best & 15) - 1;
+}
+
+__device__ __forceinline__ uint32_t pk16(int a, int b) {
+  return (static_cast<uint32_t>(a) & 0xffffu) | (static_cast<uint32_t>(b) << 16);
+}
+
+// A block's outputs straight to device memory: ten stores a thread, each to
+// a line of its own, since the threads of a warp sit in different block rows.
+__device__ __forceinline__ void store_block(const int x[16], const uint32_t rec[4], int mode,
+                                            int W, int16_t* __restrict__ qcoef_px,
+                                            uint8_t* __restrict__ recon_px,
+                                            int8_t* __restrict__ mode_b,
+                                            uint8_t* __restrict__ escape_b) {
+#pragma unroll
+  for (int rr = 0; rr < 4; ++rr) {
+    *reinterpret_cast<uint2*>(qcoef_px + static_cast<size_t>(rr) * W) =
+        make_uint2(pk16(x[4 * rr], x[4 * rr + 1]), pk16(x[4 * rr + 2], x[4 * rr + 3]));
+    *reinterpret_cast<uint32_t*>(recon_px + static_cast<size_t>(rr) * W) = rec[rr];
+  }
+  *mode_b = static_cast<int8_t>(mode & 15);
+  *escape_b = static_cast<uint8_t>(mode >> 7);
+}
+
+// The outputs of kGroup consecutive blocks of one block row, staged in shared
+// memory until a warp writes them out together: words [0, 32) recon as [pixel
+// row][block], [32, 96) qcoef as [pixel row][block][2], then 8 mode bytes and
+// 8 escape bytes.
+__device__ __forceinline__ void stage_block(uint32_t* tile, int slot, const int x[16],
+                                            const uint32_t rec[4], int mode) {
+#pragma unroll
+  for (int rr = 0; rr < 4; ++rr) {
+    tile[rr * kGroup + slot] = rec[rr];
+    tile[4 * kGroup + rr * 2 * kGroup + 2 * slot] = pk16(x[4 * rr], x[4 * rr + 1]);
+    tile[4 * kGroup + rr * 2 * kGroup + 2 * slot + 1] = pk16(x[4 * rr + 2], x[4 * rr + 3]);
+  }
+  uint8_t* flags = reinterpret_cast<uint8_t*>(tile + 12 * kGroup);
+  flags[slot] = static_cast<uint8_t>(mode & 15);
+  flags[kGroup + slot] = static_cast<uint8_t>(mode >> 7);
+}
+
+// One warp writes a staged group of n blocks out: a pixel row's 4 n bytes of
+// recon and 8 n bytes of qcoef go out side by side, a few 32-byte sectors an
+// instruction instead of one a lane. recon_px, qcoef_px: the group's first
+// pixel; mode_b, escape_b: its first block.
+__device__ __forceinline__ void flush_group(const uint32_t* tile, int n, int lane, int W,
+                                            int16_t* __restrict__ qcoef_px,
+                                            uint8_t* __restrict__ recon_px,
+                                            int8_t* __restrict__ mode_b,
+                                            uint8_t* __restrict__ escape_b) {
+  if ((lane & 7) < n)
+    *reinterpret_cast<uint32_t*>(recon_px + static_cast<size_t>(lane >> 3) * W + 4 * (lane & 7)) = tile[lane];
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int rr = 2 * half + (lane >> 4), w = lane & 15;
+    if (w < 2 * n)
+      *reinterpret_cast<uint32_t*>(qcoef_px + static_cast<size_t>(rr) * W + 2 * w) =
+          tile[4 * kGroup + rr * 2 * kGroup + w];
+  }
+  const uint8_t* flags = reinterpret_cast<const uint8_t*>(tile + 12 * kGroup);
+  if (lane < n) mode_b[lane] = static_cast<int8_t>(flags[lane]);
+  if (lane >= kGroup && lane - kGroup < n) escape_b[lane - kGroup] = flags[lane];
+}
+
+// grid (N). Dynamic shared memory: nbh * kEncRowWords words of carry and,
+// with row_warps > 0, nbh * kStageWords words of staged outputs.
+// row_warps > 0: block = (row_warps + kFlushWarps) warps, nbh <= 32 *
+// row_warps, a thread of the first warps per block row. row_warps == 0: any
+// block, each thread loops over block rows.
+__global__ void __launch_bounds__(kEncThreads) intra_encode_kernel(
+    const uint8_t* __restrict__ planes, int16_t* __restrict__ qcoef, int8_t* __restrict__ modes,
+    uint8_t* __restrict__ escape, uint8_t* __restrict__ recon, int H, int W, Quantiser q,
+    int row_warps) {
   extern __shared__ int carry[];
   const int nbh = H / 4, nbw = W / 4;
-  int* ring = carry;
-  int* left = carry + nbh * 16;
+  uint32_t* ring = reinterpret_cast<uint32_t*>(carry);
+  uint32_t* left = ring + nbh * 4;
+  uint32_t* stage = left + nbh;
   const size_t plane = static_cast<size_t>(H) * W;
   const size_t base = blockIdx.x * plane;
   const size_t bbase = static_cast<size_t>(blockIdx.x) * nbh * nbw;
   const int steps = 2 * (nbh - 1) + nbw;
 
+  if (row_warps > 0) {
+    // One block row per thread. The original pixels depend on nothing the
+    // chain computes: those of the row's next block are loaded a step ahead,
+    // so no step waits for device memory. Nor does a row thread store to
+    // device memory: the threads of a warp sit in different block rows, so
+    // each of a block's ten stores would go to a line of its own and the
+    // warps would queue behind them. A row's outputs gather in shared memory
+    // instead, kGroup blocks to a group and two groups a row, and the
+    // kFlushWarps last warps of the CTA, which code nothing, write each
+    // finished group out whole, beside the chain and not on it.
+    const int bi = threadIdx.x;
+    const int lane = bi & 31, flusher = (bi >> 5) - row_warps;
+    const bool active = bi < nbh;
+    const uint8_t* row_px = planes + base + static_cast<size_t>(4 * bi) * W;
+    uint32_t nxt[4] = {0u, 0u, 0u, 0u};
+    if (active) {
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+        nxt[r] = *reinterpret_cast<const uint32_t*>(row_px + static_cast<size_t>(r) * W);
+    }
+    // two more steps than the chain has: the flush runs up to two behind
+    for (int t = 0; t < steps + 2; ++t) {
+      const int bj = t - 2 * bi;
+      if (active && bj >= 0 && bj < nbw) {
+        uint32_t o[4];
+#pragma unroll
+        for (int r = 0; r < 4; ++r) o[r] = nxt[r];
+        if (bj + 1 < nbw) {
+#pragma unroll
+          for (int r = 0; r < 4; ++r)
+            nxt[r] = *reinterpret_cast<const uint32_t*>(row_px + static_cast<size_t>(r) * W + 4 * (bj + 1));
+        }
+        int x[16];
+        uint32_t rec[4];
+        const int mode = encode_block(o, ring, left, bi, bj, t, nbw, q, x, rec);
+        stage_block(stage + bi * kStageWords + ((bj / kGroup) & 1) * kTileWords, bj % kGroup, x,
+                    rec, mode);
+      }
+      if (flusher >= 0) {
+        // A full group ends with block 8 j + 7, coded in an odd step s by row
+        // (s - 7) / 2 - 4 j. Its row starts to overwrite it eight steps
+        // later, so the groups of step s are written out over the two steps
+        // that follow, a quarter by each flush warp in each.
+        const int tp = t - 1;
+        const int s = (tp & 1) ? tp : tp - 1;
+        if (s >= kGroup - 1) {
+          const int top = (s - (kGroup - 1)) / 2;
+          const int j_lo = top >= nbh ? (top - nbh + 4) / 4 : 0;
+          const int j_hi = min(top / 4, nbw / kGroup - 1);
+          for (int j = j_lo + 2 * (tp - s) + flusher; j <= j_hi; j += 2 * kFlushWarps) {
+            const int row = top - 4 * j;
+            const size_t px = base + static_cast<size_t>(4 * row) * W + 4 * kGroup * j;
+            const size_t b = bbase + static_cast<size_t>(row) * nbw + kGroup * j;
+            flush_group(stage + row * kStageWords + (j & 1) * kTileWords, kGroup, lane, W,
+                        qcoef + px, recon + px, modes + b, escape + b);
+          }
+        }
+        // the shorter group that ends a row, coded in step tp
+        const int twice = tp - (nbw - 1);
+        if (flusher == 0 && nbw % kGroup && twice >= 0 && !(twice & 1) && twice / 2 < nbh) {
+          const int row = twice / 2, j = nbw / kGroup;
+          const size_t px = base + static_cast<size_t>(4 * row) * W + 4 * kGroup * j;
+          const size_t b = bbase + static_cast<size_t>(row) * nbw + kGroup * j;
+          flush_group(stage + row * kStageWords + (j & 1) * kTileWords, nbw % kGroup, lane, W,
+                      qcoef + px, recon + px, modes + b, escape + b);
+        }
+      }
+      __syncthreads();
+    }
+    return;
+  }
+  // More block rows than threads: each thread loops over its rows.
   for (int t = 0; t < steps; ++t) {
     for (int bi = threadIdx.x; bi < nbh; bi += blockDim.x) {
       const int bj = t - 2 * bi;
       if (bj < 0 || bj >= nbw) continue;
-      Neighbors n;
-      load_neighbors(ring, left, bi, bj, t, nbw, n);
       const size_t px = base + static_cast<size_t>(4 * bi) * W + 4 * bj;
-      int o[16];
+      uint32_t o[4];
 #pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const uchar4 v = *reinterpret_cast<const uchar4*>(planes + px + static_cast<size_t>(r) * W);
-        o[4 * r] = v.x; o[4 * r + 1] = v.y; o[4 * r + 2] = v.z; o[4 * r + 3] = v.w;
-      }
-      int best = kSentinelKey;
-      int bp[16];
-#pragma unroll
-      for (int i = 0; i < 16; ++i) bp[i] = 0;
-#pragma unroll
-      for (int m = 0; m < 9; ++m) {
-        int p[16];
-        predict(m, n, p);
-        int sad = 0;
-#pragma unroll
-        for (int i = 0; i < 16; ++i) sad += abs(p[i] - o[i]);
-        const int key = sad * 16 + m + 1;
-        if (key < best) {
-          best = key;
-#pragma unroll
-          for (int i = 0; i < 16; ++i) bp[i] = p[i];
-        }
-      }
-      const bool esc = best == kSentinelKey;
+      for (int r = 0; r < 4; ++r)
+        o[r] = *reinterpret_cast<const uint32_t*>(planes + px + static_cast<size_t>(r) * W);
       int x[16];
-#pragma unroll
-      for (int i = 0; i < 16; ++i) x[i] = o[i] - bp[i];
-      fwd_quant(x, qstep);
-      int r[16];
-#pragma unroll
-      for (int i = 0; i < 16; ++i) r[i] = x[i];
-      dequant_inv(r, qstep);
-      int rec[16];
-#pragma unroll
-      for (int i = 0; i < 16; ++i) rec[i] = min(max(bp[i] + r[i], 0), 255);
-
-#pragma unroll
-      for (int rr = 0; rr < 4; ++rr) {
-        const size_t at = px + static_cast<size_t>(rr) * W;
-        *reinterpret_cast<short4*>(qcoef + at) =
-            make_short4(static_cast<short>(x[4 * rr]), static_cast<short>(x[4 * rr + 1]),
-                        static_cast<short>(x[4 * rr + 2]), static_cast<short>(x[4 * rr + 3]));
-        *reinterpret_cast<uchar4*>(recon + at) =
-            make_uchar4(static_cast<unsigned char>(rec[4 * rr]), static_cast<unsigned char>(rec[4 * rr + 1]),
-                        static_cast<unsigned char>(rec[4 * rr + 2]), static_cast<unsigned char>(rec[4 * rr + 3]));
-      }
+      uint32_t rec[4];
+      const int mode = encode_block(o, ring, left, bi, bj, t, nbw, q, x, rec);
       const size_t b = bbase + static_cast<size_t>(bi) * nbw + bj;
-      modes[b] = static_cast<int8_t>(esc ? 0 : (best & 15) - 1);
-      escape[b] = esc ? 1 : 0;
-      store_carry(ring, left, bi, t, rec);
+      store_block(x, rec, mode, W, qcoef + px, recon + px, modes + b, escape + b);
     }
     __syncthreads();
   }
@@ -390,16 +664,26 @@ cudaError_t prepare(Kernel kernel, size_t smem) {
 
 }  // namespace
 
+// magic, shift: the multiply-and-shift form of the division by 800 qstep,
+// exact for every numerator below 2^25 (the wrapper computes them).
 extern "C" int vcs_intra_encode(const void* planes, void* qcoef, void* modes, void* escape,
-                                void* recon, int N, int H, int W, int qstep, void* stream) {
+                                void* recon, int N, int H, int W, int qstep, unsigned magic,
+                                int shift, void* stream) {
   const int nbh = H / 4;
-  const size_t smem = static_cast<size_t>(nbh) * kRowInts * sizeof(int);
+  int row_warps = (nbh + 31) / 32, threads = 32 * (row_warps + kFlushWarps);
+  if (threads > kEncThreads) {     // more block rows than row threads: no staging
+    row_warps = 0;
+    threads = kEncThreads;
+  }
+  const size_t smem = static_cast<size_t>(nbh) * sizeof(uint32_t) *
+                      (kEncRowWords + (row_warps ? kStageWords : 0));
   cudaError_t err = prepare(intra_encode_kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  intra_encode_kernel<<<N, threads_for(nbh), smem, static_cast<cudaStream_t>(stream)>>>(
+  const Quantiser q = {qstep, 400 * qstep, magic, shift};
+  intra_encode_kernel<<<N, threads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint8_t*>(planes), static_cast<int16_t*>(qcoef),
       static_cast<int8_t*>(modes), static_cast<uint8_t*>(escape), static_cast<uint8_t*>(recon),
-      H, W, qstep);
+      H, W, q, row_warps);
   return static_cast<int>(cudaGetLastError());
 }
 

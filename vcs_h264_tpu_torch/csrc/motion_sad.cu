@@ -8,8 +8,8 @@
 // phase copies and the row skip are TPU devices that change no result and
 // are not carried over.
 //
-// What it computes, for every 8x8 block of every P-frame f of GOP g against
-// the GOP's reference (I-frame):
+// What it computes, for every bs x bs block of every P-frame f of GOP g
+// against the GOP's reference (I-frame):
 //   * candidate positions p = max(c - reach, 0) + step * k on each axis,
 //     valid iff p + bs < min(c + reach, extent);
 //   * the wrapping, ordered SAD  sum_{c,y,x} (ref[p + .] - cur[.]) & 255;
@@ -20,16 +20,38 @@
 //     co-located block <= static_threshold -> zero vector;
 //   * MV stored as (dx, dy) = (pj - cj, pi - ci).
 //
-// What bounds it on an H100: integer ALU work in shared memory, about
-// K*K*C*bs^2 (23k at K = 11) byte loads, subtractions and adds per block and
-// frame; the frames themselves are read once (a few bytes per pixel).
-// Design: one CTA per (GOP, block) with one thread per candidate (121 of 128
-// threads at reach 16, step 3). The CTA stages the block's whole search
-// window of the reference, C x (step*(K-1)+bs)^2 bytes, in shared memory
-// ONCE and reuses it for all F frames of the GOP; per frame it stages the
-// current block, each thread sums its candidate's SAD, and a warp-shuffle
-// min over packed keys picks the winner. The [G, F, nbh, nbw, K, K] SAD
-// tensor never reaches device memory.
+// What bounds it on an H100: the integer instruction rate and shared-memory
+// loads, K*K*C*bs^2 (23k at K = 11, C = 3, bs 8) sample differences per
+// block and frame; the frames themselves are read once (a few bytes per
+// pixel) and never bound it.
+//
+// Design (sad_search_words_kernel, block sizes 4, 8 and 16): one
+// CTA per (GOP, block), one thread per candidate. Four samples share every
+// instruction:
+//   * the block's search window of the reference is staged ONCE for all F
+//     frames, with aligned 32-bit loads, as four copies shifted by 0..3
+//     bytes, so a candidate at any byte column reads whole aligned words of
+//     the copy (column & 3); the copy stride is padded on the host so that a
+//     warp's candidates spread over the banks;
+//   * per frame the current block is staged as words b, stored as the pair
+//     (b & ~H, ~b & H), H = 0x80808080, and read back by every thread with
+//     one broadcast 16-byte load per row;
+//   * the four wrapping byte differences of a word are
+//     ((a | H) - (b & ~H)) ^ (a & H) ^ (~b & H): the subtraction cannot borrow
+//     across bytes, and the exclusive-ors repair bit 7; __dp4a with
+//     0x01010101 adds the four bytes to the SAD. The same sums in the same
+//     integers as the byte loop, so keys, ties and the sentinel are as above;
+//   * the static check comes FIRST: the threads that stage the current block
+//     also sum its saturating differences against the co-located window
+//     words, and a frame whose block is static skips the candidate loop for
+//     the whole CTA.
+// A warp-shuffle min over packed keys picks the winner; the [G, F, nbh, nbw,
+// K, K] SAD tensor never reaches device memory.
+//
+// sad_search_bytes_kernel, one byte per step, stays for the shapes the word
+// kernel does not take (another block size, operands not on a 4-byte
+// boundary, a window whose four copies exceed a block's shared memory);
+// vcs_sad_search chooses between them by shape alone.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -37,6 +59,9 @@
 namespace {
 
 constexpr int kMaxThreads = 1024;
+constexpr int kMaxSharedBytes = 232448;   // dynamic shared memory a block may opt into
+constexpr uint32_t kHigh = 0x80808080u;   // bit 7 of each byte
+constexpr uint32_t kOnes = 0x01010101u;
 
 __device__ __forceinline__ int warp_min(int v) {
   for (int o = 16; o > 0; o >>= 1) v = min(v, __shfl_down_sync(0xffffffffu, v, o));
@@ -48,15 +73,161 @@ __device__ __forceinline__ int warp_sum(int v) {
   return v;
 }
 
+// acc + sum over the four bytes of (a - b) & 255, given b as
+// b_low = b & ~kHigh and nb_high = ~b & kHigh.
+__device__ __forceinline__ uint32_t wrap_sad4(uint32_t a, uint32_t b_low, uint32_t nb_high,
+                                              uint32_t acc) {
+  const uint32_t t = (a | kHigh) - b_low;      // per byte 128 + a_low - b_low: no borrow
+  const uint32_t m = (a & kHigh) ^ nb_high;    // bit 7: a7 ^ ~b7
+  return __dp4a(t ^ m, kOnes, acc);
+}
+
+// sum over the four bytes of max(a - b, 0)
+__device__ __forceinline__ uint32_t sat_sad4(uint32_t a, uint32_t b) {
+  const uint32_t t = (a | kHigh) - (b & ~kHigh);
+  const uint32_t d = t ^ ((a ^ ~b) & kHigh);                  // (a - b) & 255 per byte
+  const uint32_t ge = ((a & ~b) | (~(a ^ b) & t)) & kHigh;    // bit 7: a >= b
+  return __dp4a(d & ((ge >> 7) * 255u), kOnes, 0u);
+}
+
+// The winner of one block and frame: packed best key -> (dx, dy).
+__device__ __forceinline__ void store_vector(int32_t* o, int best, bool is_static, int sent, int sh,
+                                             int K, int step, int lo_i, int lo_j, int ci, int cj) {
+  int pi = 0, pj = 0;
+  best = min(best, sent);
+  if (best < sent) {
+    const int flat = (best & ((1 << sh) - 1)) - 1;
+    pi = lo_i + step * (flat / K);
+    pj = lo_j + step * (flat % K);
+  }
+  if (is_static) { pi = ci; pj = cj; }
+  o[0] = pj - cj;
+  o[1] = pi - ci;
+}
+
 // grid (nbw, nbh, G), block = K*K rounded up to a multiple of 32 (<= 1024).
-// dynamic shared memory: C*win*win bytes of window + C*bs*bs ints of block.
-__global__ void sad_search_kernel(const uint8_t* __restrict__ curs,
-                                  const uint8_t* __restrict__ refs,
-                                  int32_t* __restrict__ mv_out,
-                                  int F, int C, int H, int W, int bs,
-                                  int reach, int step, int K, int win,
-                                  int sh, int sent, int static_threshold) {
-  extern __shared__ unsigned char smem[];
+// Dynamic shared memory: C*BS*BS/4 uint2 of the current block, then the four
+// shifted window copies of copy_w words each, a copy being [C, win, n_w]
+// words. curs, refs on 4-byte boundaries, W a multiple of 4.
+template <int BS>
+__global__ void sad_search_words_kernel(const uint8_t* __restrict__ curs,
+                                        const uint8_t* __restrict__ refs,
+                                        int32_t* __restrict__ mv_out,
+                                        int F, int C, int H, int W, int reach, int step, int K,
+                                        int win, int n_w, int copy_w, int sh, int sent,
+                                        int static_threshold) {
+  constexpr int BSW = BS / 4;                // words per block row
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int cur_n = C * BS * BSW;
+  uint2* cur_s = reinterpret_cast<uint2*>(smem);                        // [C, BS, BSW]
+  uint32_t* win_s = reinterpret_cast<uint32_t*>(smem) + 2 * cur_n;
+  __shared__ int red_key[kMaxThreads / 32];
+  __shared__ int red_stat[kMaxThreads / 32];
+
+  const int bj = blockIdx.x, bi = blockIdx.y, g = blockIdx.z;
+  const int nbw = W / BS, nbh = H / BS;
+  const int tid = threadIdx.x, nthr = blockDim.x;
+  const int lane = tid & 31, warp = tid >> 5, nwarps = nthr >> 5;
+  const int ci = bi * BS, cj = bj * BS;
+  const int lo_i = max(ci - reach, 0), hi_i = min(ci + reach, H);
+  const int lo_j = max(cj - reach, 0), hi_j = min(cj + reach, W);
+  const int x0 = lo_j & ~3, off = lo_j - x0;    // the window's first aligned column
+  const size_t plane = static_cast<size_t>(H) * W;
+  const int chan_w = win * n_w;
+
+  // Stage the window once for all F frames: word w of row r holds columns
+  // x0 + 4w .. +3, copy s the same bytes shifted down by s. Words past the
+  // frame's edge are only ever read by invalid candidates and hold 0.
+  const uint8_t* ref = refs + static_cast<size_t>(g) * C * plane;
+  for (int idx = tid; idx < C * chan_w; idx += nthr) {
+    const int c = idx / chan_w, rem = idx - c * chan_w;
+    const int r = rem / n_w, w = rem - r * n_w;
+    const int y = lo_i + r, x = x0 + 4 * w;
+    uint32_t a = 0, b = 0;
+    if (y < H) {
+      const uint32_t* row = reinterpret_cast<const uint32_t*>(ref + c * plane + static_cast<size_t>(y) * W + x);
+      if (x < W) a = row[0];
+      if (w + 1 < n_w && x + 4 < W) b = row[1];
+    }
+    win_s[idx] = a;
+#pragma unroll
+    for (int s = 1; s < 4; ++s) win_s[s * copy_w + idx] = __funnelshift_r(a, b, 8 * s);
+  }
+
+  const int masked = sent + ((1 << sh) - 1);
+  const int ri = ci - lo_i, sb = off + cj - lo_j;   // the co-located block in the window
+  const uint32_t* stat_w = win_s + (sb & 3) * copy_w + ri * n_w + (sb >> 2);
+  for (int f = 0; f < F; ++f) {
+    const uint8_t* cur = curs + (static_cast<size_t>(g) * F + f) * C * plane;
+    __syncthreads();   // window staged / previous frame's block consumed
+    int stat = 0;
+    for (int idx = tid; idx < cur_n; idx += nthr) {
+      const int c = idx / (BS * BSW), y = (idx / BSW) % BS, xw = idx % BSW;
+      const uint32_t b = *reinterpret_cast<const uint32_t*>(
+          cur + c * plane + static_cast<size_t>(ci + y) * W + cj + 4 * xw);
+      cur_s[idx] = make_uint2(b & ~kHigh, ~b & kHigh);
+      stat += static_cast<int>(sat_sad4(stat_w[c * chan_w + y * n_w + xw], b));
+    }
+    stat = warp_sum(stat);
+    if (lane == 0) red_stat[warp] = stat;
+    __syncthreads();
+    stat = 0;
+    for (int w = 0; w < nwarps; ++w) stat += red_stat[w];
+    int32_t* o = mv_out + ((((static_cast<size_t>(g) * F + f) * nbh + bi) * nbw + bj) * 2);
+    if (stat <= static_threshold) {            // the same for every thread of the CTA
+      if (tid == 0) { o[0] = 0; o[1] = 0; }
+      continue;
+    }
+
+    int key = masked;
+    for (int cand = tid; cand < K * K; cand += nthr) {
+      const int ki = cand / K, kj = cand - ki * K;
+      const int oi = step * ki, oj = step * kj;
+      if (lo_i + oi + BS < hi_i && lo_j + oj + BS < hi_j) {
+        const int col = off + oj;
+        const uint32_t* wp = win_s + (col & 3) * copy_w + oi * n_w + (col >> 2);
+        uint32_t sad = 0;
+        for (int c = 0; c < C; ++c) {
+          const uint32_t* wc = wp + c * chan_w;
+          const uint2* cc = cur_s + c * BS * BSW;
+#pragma unroll
+          for (int y = 0; y < BS; ++y) {
+            if (BSW == 1) {
+              const uint2 b = cc[y];
+              sad = wrap_sad4(wc[y * n_w], b.x, b.y, sad);
+            } else {
+#pragma unroll
+              for (int xw = 0; xw < BSW; xw += 2) {
+                const uint4 b = *reinterpret_cast<const uint4*>(cc + y * BSW + xw);
+                sad = wrap_sad4(wc[y * n_w + xw], b.x, b.y, sad);
+                sad = wrap_sad4(wc[y * n_w + xw + 1], b.z, b.w, sad);
+              }
+            }
+          }
+        }
+        key = min(key, static_cast<int>(sad << sh) + cand + 1);
+      }
+    }
+    key = warp_min(key);
+    if (lane == 0) red_key[warp] = key;
+    __syncthreads();
+    if (tid == 0) {
+      int best = red_key[0];
+      for (int w = 1; w < nwarps; ++w) best = min(best, red_key[w]);
+      store_vector(o, best, false, sent, sh, K, step, lo_i, lo_j, ci, cj);
+    }
+  }
+}
+
+// grid (nbw, nbh, G), block = K*K rounded up to a multiple of 32 (<= 1024).
+// dynamic shared memory: C*bs*bs ints of block + C*win*win bytes of window.
+__global__ void sad_search_bytes_kernel(const uint8_t* __restrict__ curs,
+                                        const uint8_t* __restrict__ refs,
+                                        int32_t* __restrict__ mv_out,
+                                        int F, int C, int H, int W, int bs,
+                                        int reach, int step, int K, int win,
+                                        int sh, int sent, int static_threshold) {
+  extern __shared__ __align__(16) unsigned char smem[];
   int* cur_s = reinterpret_cast<int*>(smem);            // [C, bs, bs]
   uint8_t* win_s = smem + sizeof(int) * C * bs * bs;    // [C, win, win]
   __shared__ int red_key[kMaxThreads / 32];
@@ -123,19 +294,48 @@ __global__ void sad_search_kernel(const uint8_t* __restrict__ curs,
     if (tid == 0) {
       int best = red_key[0], st = red_stat[0];
       for (int w = 1; w < nwarps; ++w) { best = min(best, red_key[w]); st += red_stat[w]; }
-      best = min(best, sent);
-      int pi = 0, pj = 0;
-      if (best < sent) {
-        const int flat = (best & ((1 << sh) - 1)) - 1;
-        pi = lo_i + step * (flat / K);
-        pj = lo_j + step * (flat % K);
-      }
-      if (st <= static_threshold) { pi = ci; pj = cj; }
-      int32_t* o = mv_out + ((((static_cast<size_t>(g) * F + f) * nbh + bi) * nbw + bj) * 2);
-      o[0] = pj - cj;
-      o[1] = pi - ci;
+      store_vector(mv_out + ((((static_cast<size_t>(g) * F + f) * nbh + bi) * nbw + bj) * 2), best,
+                   st <= static_threshold, sent, sh, K, step, lo_i, lo_j, ci, cj);
     }
   }
+}
+
+// Words between the shifted window copies: the least padding of c_words for
+// which the candidates of each warp (consecutive flat indices, copy
+// (step * kj) & 3, word row step * ki) fall on the fewest common banks.
+int padded_copy_words(int c_words, int K, int step, int n_w) {
+  int best_pad = 0, best_cost = 1 << 30;
+  for (int pad = 0; pad < 32; ++pad) {
+    int cost = 0;
+    for (int first = 0; first < K * K; first += 32) {
+      int hits[32] = {0}, worst = 0;
+      for (int cand = first; cand < K * K && cand < first + 32; ++cand) {
+        const int col = step * (cand % K);
+        const int bank = ((col & 3) * (c_words + pad) + step * (cand / K) * n_w + (col >> 2)) & 31;
+        if (++hits[bank] > worst) worst = hits[bank];
+      }
+      cost += worst;
+    }
+    if (cost < best_cost) { best_cost = cost; best_pad = pad; }
+  }
+  return c_words + best_pad;
+}
+
+template <int BS>
+cudaError_t launch_words(const uint8_t* curs, const uint8_t* refs, int32_t* mv_out, dim3 grid,
+                         int threads, size_t shmem, cudaStream_t stream, int F, int C, int H,
+                         int W, int reach, int step, int K, int win, int n_w, int copy_w, int sh,
+                         int sent, int static_threshold) {
+  if (shmem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(sad_search_words_kernel<BS>,
+                                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                                 static_cast<int>(shmem));
+    if (err != cudaSuccess) return err;
+  }
+  sad_search_words_kernel<BS><<<grid, threads, shmem, stream>>>(
+      curs, refs, mv_out, F, C, H, W, reach, step, K, win, n_w, copy_w, sh, sent,
+      static_threshold);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -152,11 +352,32 @@ extern "C" int vcs_sad_search(const void* curs, const void* refs, void* mv_out,
   const int sent = (C * 255 * bs * bs + 1) << sh;
   int threads = ((K * K + 31) / 32) * 32;
   if (threads > kMaxThreads) threads = kMaxThreads;
+  const dim3 grid(W / bs, H / bs, G);
+  const auto* cur_p = static_cast<const uint8_t*>(curs);
+  const auto* ref_p = static_cast<const uint8_t*>(refs);
+  auto* out_p = static_cast<int32_t*>(mv_out);
+  const auto st = static_cast<cudaStream_t>(stream);
+
+  // The word kernel: 3 more bytes per row for the window's aligned start.
+  const int n_w = (win + 3 + 3) / 4;
+  const int copy_w = padded_copy_words(C * win * n_w, K, step, n_w);
+  const size_t shmem_words = 8u * C * bs * (bs / 4) + 16u * copy_w;
+  const bool aligned = (reinterpret_cast<uintptr_t>(curs) | reinterpret_cast<uintptr_t>(refs)) % 4 == 0;
+  if ((bs == 4 || bs == 8 || bs == 16) && aligned && shmem_words <= kMaxSharedBytes) {
+    cudaError_t err;
+    if (bs == 4)
+      err = launch_words<4>(cur_p, ref_p, out_p, grid, threads, shmem_words, st, F, C, H, W, reach,
+                            step, K, win, n_w, copy_w, sh, sent, static_threshold);
+    else if (bs == 8)
+      err = launch_words<8>(cur_p, ref_p, out_p, grid, threads, shmem_words, st, F, C, H, W, reach,
+                            step, K, win, n_w, copy_w, sh, sent, static_threshold);
+    else
+      err = launch_words<16>(cur_p, ref_p, out_p, grid, threads, shmem_words, st, F, C, H, W, reach,
+                             step, K, win, n_w, copy_w, sh, sent, static_threshold);
+    return static_cast<int>(err);
+  }
   const size_t shmem = sizeof(int) * C * bs * bs + static_cast<size_t>(C) * win * win;
-  dim3 grid(W / bs, H / bs, G);
-  sad_search_kernel<<<grid, threads, shmem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(curs), static_cast<const uint8_t*>(refs),
-      static_cast<int32_t*>(mv_out), F, C, H, W, bs, reach, step, K, win, sh,
-      sent, static_threshold);
+  sad_search_bytes_kernel<<<grid, threads, shmem, st>>>(
+      cur_p, ref_p, out_p, F, C, H, W, bs, reach, step, K, win, sh, sent, static_threshold);
   return static_cast<int>(cudaGetLastError());
 }

@@ -51,8 +51,9 @@ SIGNATURES = {
     "vcs_c420_encode": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     "vcs_c420_decode": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     # planes, qcoef_out, modes_out, escape_out, recon_out, N, H, W, qstep,
-    # stream
-    "vcs_intra_encode": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # magic, shift (intra_cuda.quant_magic), stream
+    "vcs_intra_encode": (_P, _P, _P, _P, _P, _I, _I, _I, _I, ctypes.c_uint, _I,
+                         _P),
     # res, modes, escape, out, N, H, W, qstep, clip, stream
     "vcs_intra_decode": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     # mv, refs, out, G, F, C, H, W, bs, stream

@@ -51,6 +51,24 @@ def _check_qstep(name: str, qstep: int, lo: int) -> None:
                          f"{qstep}")
 
 
+_NUMERATOR_BITS = 25          # 2 * 25 * 36 * 255 + 400 * 65535 < 2**25
+
+
+def quant_magic(qstep: int) -> tuple[int, int]:
+    """(magic, shift) with n // (800 * qstep) == (n * magic) >> (32 + shift)
+    for every 0 <= n < 2**25: the forward quantiser's division, which K5
+    takes as one high multiply and one shift. Its numerators are
+    2 * |coefficient * 400 G| + 400 * qstep with |coefficient| <= 36 * 255
+    and 400 G <= 25, below 2**25 for every qstep the wrapper admits.
+
+    Round-up method: with l = ceil(log2 d) and magic = ceil(2**(25 + l) / d),
+    magic * d - 2**(25 + l) < d <= 2**l, which bounds the error of the
+    product below one step of the quotient for n < 2**25."""
+    d = 800 * qstep
+    k = _NUMERATOR_BITS + (d - 1).bit_length()
+    return -(-(1 << k) // d), k - 32
+
+
 def intra_encode(planes: torch.Tensor, qstep: int):
     """K5 on the card: planes uint8 [N, H, W] -> (qcoef int16 [N, H, W]
     block-layout planes, modes int8 [N, H/4, W/4], escape bool [N, H/4,
@@ -70,7 +88,8 @@ def intra_encode(planes: torch.Tensor, qstep: int):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.vcs_intra_encode(planes.data_ptr(), qcoef.data_ptr(),
                                    modes.data_ptr(), escape.data_ptr(),
-                                   recon.data_ptr(), n, h, w, qstep, stream)
+                                   recon.data_ptr(), n, h, w, qstep,
+                                   *quant_magic(qstep), stream)
     _build.check(err, name)
     LAUNCHES[name] += 1
     return qcoef, modes, escape, recon
