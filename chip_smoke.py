@@ -3,9 +3,12 @@
 
     python3 chip_smoke.py [--seed N]
     python3 chip_smoke.py --profile     # device time by kernel, per path
-    python3 chip_smoke.py --earlier DIR # also time an earlier version of
-                                        # K2 and K5 (DIR holds its
-                                        # motion_sad.cu, intra_wavefront.cu)
+    python3 chip_smoke.py --earlier DIR # also build an earlier version of
+                                        # K2, K4, K5 and K6 (DIR holds its
+                                        # motion_sad.cu, intra_wavefront.cu,
+                                        # inter_fused.cu + block_origin.cuh,
+                                        # or some of them), hold today's
+                                        # kernels identical to it, time it
 
 Run from the root of a checkout: it builds the CUDA kernels from
 `vcs_h264_tpu_torch/csrc/` with nvcc and imports nothing of JAX or of the JAX
@@ -21,11 +24,18 @@ package. Phases, each of which exits nonzero on failure:
         K3/K4 within 1 on at most 2 values per shape; then K2 alone, both
         of its kernels, at the shapes its word loads, shifted window copies
         and static skip can get wrong (`search_edge_phase`): vectors
-        identical;
+        identical; and K4 alone where its strips of 16 blocks, 16-byte loads
+        and shifted reference words can go wrong (`fused_decode_edge_phase`:
+        widths 8 to 264, one block row, one P-frame, vectors far outside and
+        at the int32 extremes, coefficients at +-32767), same bound;
      b. K5/K6 at small edge shapes (one 4x4 block, one or two block rows
         and columns, a ragged plane, a plane built to escape, a plane with
         more block rows than a CTA has threads; qsteps 1 to 65535): every
-        output bit-identical, escapes exercised;
+        output bit-identical, escapes exercised; then K6 alone on streams no
+        encoder wrote (`decode_edge_phase`: random residuals, modes -3 to
+        12, random and all-set escapes; 287, 288 and 289 block rows, around
+        the end of the clipped decode's fast form; unclipped outputs outside
+        0..255; 140 planes): identical to the plain decode;
      c. K2/K3/K4 at 1280x720, 8 GOPs of 3 P-frames: K2 vectors identical; K3
         coefficients within 1 on at most 1e-5 of them; K4 pixels within 1 on
         at most 1e-4 of them;
@@ -33,7 +43,8 @@ package. Phases, each of which exits nonzero on failure:
         24: K5 qcoef, modes, escape and recon identical to the plain
         version; K6 lossy on K5's payload identical to K5's recon; K6
         lossless on the plain lossless codec's residuals identical to the
-        source planes;
+        source planes; then K5/K6 on 3 planes of 1920x1080, identical to
+        the plain versions, timed once (no path below runs that size);
      e. K1 at edge shapes: bs 2, 4, 6, 8 and 16, C 1 and 3, one block row,
         widths that are not multiples of 32 or of 4, a row longer than a
         CTA's segment, vectors whose source origins fall before, after and
@@ -96,11 +107,13 @@ K2 has two kernels, chosen by shape in its C entry point: the word kernel
 (block sizes 4, 8, 16 on 4-byte boundaries; all main shapes) and the byte
 kernel (everything else). The `sad_search` entry's "earlier_ms" is the byte
 kernel at the main shape, reached through operands one byte off a word
-boundary; with --earlier it is the earlier build's time, as is
-`intra_encode`'s (null without). Both entries carry "redesigned": true,
-the kernels rebuilt since their first version; `intra_encode` and
-`intra_decode` carry "steps", the length of the chain of dependent
-diagonals at the timed shape.
+boundary; with --earlier it is the earlier build's time, as are those of
+`intra_encode`, `intra_decode` and `fused_p_decode` (null without). The
+four entries carry "redesigned": true, the kernels rebuilt since their
+first version; under --earlier each of them, at every main shape and (K4,
+K6) every edge shape, is first held identical to the earlier build.
+`intra_encode` and `intra_decode` carry "steps", the length of the chain
+of dependent diagonals at the timed shape.
 
 With --profile the script instead runs each path once on the kernels under
 torch.profiler (encode, decode from host memory and the intra decode of the
@@ -267,34 +280,131 @@ def read_counts() -> dict:
     return {k: v for c in counters() for k, v in c.items()}
 
 
-EARLIER = None      # ctypes library of an earlier K2 / K5 build (--earlier)
-EARLIER_MAGIC = False   # its vcs_intra_encode takes the quantiser's magic, shift
+EARLIER = None      # ctypes library of an earlier build of the kernels (--earlier)
+# which of today's interfaces the earlier sources have: vcs_intra_encode with
+# the quantiser's magic and shift, vcs_intra_decode with a scratch plane,
+# vcs_fused_p_decode with its tables in host memory
+EARLIER_HAS = {"magic": False, "scratch": False, "tabs_host": False}
+EARLIER_SOURCES = ("motion_sad.cu", "intra_wavefront.cu", "inter_fused.cu")
 
 
 def load_earlier(src_dir: str) -> None:
-    """Build `motion_sad.cu` and `intra_wavefront.cu` of `src_dir`, an
-    earlier version of the two sources, with the port's nvcc flags into a
-    second library, so that both versions are timed in one run on one card.
-    vcs_sad_search is taken with today's interface, vcs_intra_encode with
-    today's or, where the source names no `magic`, with the one it had
-    before K5 took the quantiser's magic number and shift."""
+    """Build those of `motion_sad.cu`, `intra_wavefront.cu` and
+    `inter_fused.cu` (with its `block_origin.cuh`) that `src_dir` holds, an
+    earlier version of the sources, with the port's nvcc flags into a second
+    library, so that both versions are timed in one run on one card. Each
+    entry point is taken with the interface its source has: today's, or the
+    one it had before (`EARLIER_HAS`)."""
     import ctypes
-    global EARLIER, EARLIER_MAGIC
+    global EARLIER
     from vcs_h264_tpu_torch.ops import _build
-    out = _build.BUILD / "libvcs_earlier.so"
+    import hashlib
+    out = _build.BUILD / ("libvcs_earlier_" + hashlib.sha256(
+        os.path.abspath(src_dir).encode()).hexdigest()[:8] + ".so")
     _build.BUILD.mkdir(parents=True, exist_ok=True)
+    srcs = [os.path.join(src_dir, n) for n in EARLIER_SOURCES
+            if os.path.exists(os.path.join(src_dir, n))]
+    if not srcs:
+        fail(f"--earlier: none of {EARLIER_SOURCES} in {src_dir}")
     _build._run_all([[_build.find_nvcc(), *_build.NVCC_FLAGS, "-shared", "-o",
-                      str(out), os.path.join(src_dir, "motion_sad.cu"),
-                      os.path.join(src_dir, "intra_wavefront.cu")]])
+                      str(out), *srcs]])
     lib = ctypes.CDLL(str(out))
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.vcs_sad_search.argtypes = list(_build.SIGNATURES["vcs_sad_search"])
-    with open(os.path.join(src_dir, "intra_wavefront.cu")) as f:
-        EARLIER_MAGIC = "magic" in f.read()
-    lib.vcs_intra_encode.argtypes = (
-        list(_build.SIGNATURES["vcs_intra_encode"]) if EARLIER_MAGIC
-        else [p, p, p, p, p, i, i, i, i, p])
+    for key, name in (("magic", "intra_wavefront.cu"),
+                      ("scratch", "intra_wavefront.cu"),
+                      ("tabs_host", "inter_fused.cu")):
+        path = os.path.join(src_dir, name)
+        if path in srcs:
+            with open(path) as f:
+                EARLIER_HAS[key] = key in f.read()
+    if hasattr(lib, "vcs_sad_search"):
+        lib.vcs_sad_search.argtypes = list(
+            _build.SIGNATURES["vcs_sad_search"])
+    if hasattr(lib, "vcs_intra_encode"):
+        lib.vcs_intra_encode.argtypes = (
+            list(_build.SIGNATURES["vcs_intra_encode"])
+            if EARLIER_HAS["magic"] else [p, p, p, p, p, i, i, i, i, p])
+        lib.vcs_intra_decode.argtypes = (
+            list(_build.SIGNATURES["vcs_intra_decode"])
+            if EARLIER_HAS["scratch"] else [p, p, p, p, i, i, i, i, i, p])
+    if hasattr(lib, "vcs_fused_p_decode"):
+        lib.vcs_fused_p_decode.argtypes = list(
+            _build.SIGNATURES["vcs_fused_p_decode"])
     EARLIER = lib
+
+
+def earlier_has(entry: str) -> bool:
+    return EARLIER is not None and hasattr(EARLIER, entry)
+
+
+def earlier_intra_decode(res, modes, esc, qstep: int, clip: bool):
+    """A function that runs the earlier build's K6 on these operands and
+    returns its output tensor."""
+    import torch
+    n, h, w = res.shape
+    out = torch.empty((n, h, w), dtype=torch.uint8 if clip else torch.int32,
+                      device=res.device)
+    scratch = (torch.empty_like(res).data_ptr(),) \
+        if EARLIER_HAS["scratch"] else ()
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def run():
+        err = EARLIER.vcs_intra_decode(
+            res.data_ptr(), modes.data_ptr(), esc.data_ptr(), out.data_ptr(),
+            *scratch, n, h, w, qstep, int(clip), stream)
+        if err:
+            fail(f"the earlier K6 build: CUDA error {err}")
+        return out
+    return run
+
+
+def earlier_fused_decode(mv, refs, co, qf: float):
+    """A function that runs the earlier build's K4 on these operands and
+    returns its output tensor."""
+    import torch
+    from vcs_h264_tpu_torch.ops import inter_cuda
+    g, f, _, h, w = co.shape
+    out = torch.empty(co.shape, dtype=torch.uint8, device=co.device)
+    tabs = (inter_cuda._tables_np(float(qf)).ctypes.data
+            if EARLIER_HAS["tabs_host"]
+            else inter_cuda._tables(float(qf), co.device).data_ptr())
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def run():
+        err = EARLIER.vcs_fused_p_decode(
+            mv.data_ptr(), refs.data_ptr(), co.data_ptr(), tabs,
+            out.data_ptr(), g, f, h, w, stream)
+        if err:
+            fail(f"the earlier K4 build: CUDA error {err}")
+        return out
+    return run
+
+
+def earlier_decode_ms(res, modes, esc, qstep: int, clip: bool, what: str):
+    """The earlier build's K6 on these operands: its time, after holding
+    its output identical to today's kernel; None without --earlier."""
+    import torch
+    from vcs_h264_tpu_torch.ops import intra_cuda
+    if not earlier_has("vcs_intra_decode"):
+        return None
+    run = earlier_intra_decode(res, modes, esc, qstep, clip)
+    if not torch.equal(run(), intra_cuda.intra_decode(res, modes, esc, qstep,
+                                                      clip)):
+        fail(f"the earlier K6 build disagrees with today's kernel ({what})")
+    return kernel_ms(run)
+
+
+def earlier_fused_decode_ms(mv, refs, co, qf: float, what: str):
+    """The earlier build's K4 on these operands: its time, after holding
+    its frames identical to today's kernel; None without --earlier."""
+    import torch
+    from vcs_h264_tpu_torch.ops import inter_cuda
+    if not earlier_has("vcs_fused_p_decode"):
+        return None
+    run = earlier_fused_decode(mv, refs, co, qf)
+    if not torch.equal(run(), inter_cuda.fused_p_decode(mv, refs, co, qf)):
+        fail(f"the earlier K4 build disagrees with today's kernel ({what})")
+    return kernel_ms(run)
 
 
 def earlier_search_ms(curs, refs, search: dict):
@@ -302,7 +412,7 @@ def earlier_search_ms(curs, refs, search: dict):
     its vectors against today's kernel; None without --earlier."""
     import torch
     from vcs_h264_tpu_torch.ops import motion_cuda
-    if EARLIER is None:
+    if not earlier_has("vcs_sad_search"):
         return None
     g, f, c, h, w = curs.shape
     out = torch.empty((g, f, h // search["bs"], w // search["bs"], 2),
@@ -326,7 +436,7 @@ def earlier_encode_ms(planes, qstep: int):
     """The earlier build's K5 on these planes: its time, after holding
     its outputs against today's kernel; None without --earlier."""
     import torch
-    if EARLIER is None:
+    if not earlier_has("vcs_intra_encode"):
         return None
     n, h, w = planes.shape
     dev = planes.device
@@ -336,7 +446,7 @@ def earlier_encode_ms(planes, qstep: int):
             torch.empty((n, h, w), dtype=torch.uint8, device=dev))
     stream = torch.cuda.current_stream().cuda_stream
     from vcs_h264_tpu_torch.ops import intra_cuda
-    magic = intra_cuda.quant_magic(qstep) if EARLIER_MAGIC else ()
+    magic = intra_cuda.quant_magic(qstep) if EARLIER_HAS["magic"] else ()
 
     def run():
         err = EARLIER.vcs_intra_encode(
@@ -407,6 +517,63 @@ def edge_shape_phase() -> None:
                          f"{worst[-1]}")
         print(f"[edge {g}x{f}x{h}x{w}] K2 vectors identical; K3/K4 "
               f"(max |diff|, count) searched/random/before-edge: {worst}")
+
+
+def fused_decode_edge_phase() -> None:
+    """Phase 3a, K4 alone, at the shapes its strips, wide loads and shifted
+    reference words can get wrong: widths of 8, 24, 136 and one strip of 128
+    px less and plus 8; one block row; one P-frame; vectors in reach, vectors
+    whose source origins fall before the top and left edges, vectors up to
+    three extents outside and the extreme int32 values; coefficients as the
+    plain encode gives them, and at +-32767. Bound: within 1 of the plain
+    version on at most 2 values a case; with --earlier also identical to the
+    earlier build."""
+    import torch
+    from vcs_h264_tpu_torch.ops import inter_cuda
+
+    rng = np.random.default_rng(8)
+    n_cases = 0
+    for g, f, h, w in ((1, 1, 8, 8), (2, 1, 16, 24), (1, 2, 8, 136),
+                       (1, 3, 24, 120), (2, 2, 16, 128), (1, 1, 40, 264)):
+        refs = torch.from_numpy(
+            rng.integers(0, 256, (g, 3, h, w), dtype=np.uint8)).cuda()
+        curs = torch.from_numpy(
+            rng.integers(0, 256, (g, f, 3, h, w), dtype=np.uint8)).cuda()
+        shape = (g, f, h // 8, w // 8, 2)
+        ext = 3 * max(h, w)
+        far = rng.integers(-ext, ext + 1, shape)
+        far.reshape(-1)[::7] = rng.choice(
+            [-2**31, 2**31 - 1, -2**31 + 5, 2**31 - 9], far.reshape(-1)[::7].size)
+        vectors = (("in reach", rng.integers(-16, 17, shape)),
+                   ("before the edges", edge_vectors(g, f, h, w)),
+                   ("far outside", far))
+        for what, mv in vectors:
+            mv = torch.from_numpy(mv.astype(np.int32)).cuda()
+            coded = inter_cuda.encode_p_coeffs_plain(mv, refs, curs, 50.0)
+            extreme = torch.from_numpy(rng.choice(
+                np.array([-32767, 32767, 0, 0], dtype=np.int16),
+                tuple(coded.shape))).cuda()
+            for kind, co in (("coded", coded), ("+-32767", extreme)):
+                got = inter_cuda.fused_p_decode(mv, refs, co, 50.0)
+                want = inter_cuda.decode_p_frames_plain(mv, refs, co, 50.0)
+                d = (got.to(torch.int32) - want.to(torch.int32)).abs()
+                if int(d.max()) > 1 or int((d != 0).sum()) > 2:
+                    fail(f"K4 outside the bound at {(g, f, h, w)}, vectors "
+                         f"{what}, coefficients {kind}: max {int(d.max())}, "
+                         f"{int((d != 0).sum())} values")
+                if earlier_has("vcs_fused_p_decode") and not torch.equal(
+                        earlier_fused_decode(mv, refs, co, 50.0)(), got):
+                    fail(f"K4 differs from the earlier build at "
+                         f"{(g, f, h, w)}, vectors {what}, coefficients "
+                         f"{kind}")
+                n_cases += 1
+    print(f"[edge K4] {n_cases} decodes within 1 of the plain version on at "
+          "most 2 values each"
+          + (", identical to the earlier build"
+             if earlier_has("vcs_fused_p_decode") else "")
+          + ": widths 8, 24, 120, 128, 136, 264; one block row; F = 1; "
+          "vectors in reach, before the edges, far outside and at the int32 "
+          "extremes; coded and +-32767 coefficients")
 
 
 def search_case(rng, g, f, c, h, w, kind: str):
@@ -594,6 +761,118 @@ def intra_edge_phase() -> None:
               f"recon ({what})")
 
 
+def decode_edge_phase() -> None:
+    """Phase 3b, K6 alone on streams no encoder wrote: random residuals,
+    modes from -3 to 12 (those outside 0..8 predict zero) and random or
+    all-set escapes, against `decode_planes_plain`, identical; with
+    --earlier also identical to the earlier build. Shapes: `nbw` and `nbh` of
+    1 and 2, widths that are no multiple of the 8 blocks written out
+    together, planes at, one below and one above the 288 block rows where
+    the clipped form's fast form ends, a plane taller than any CTA, more
+    planes than the card has SMs. Forms: lossy clipped at qsteps 1, 24 and
+    65535; lossless unclipped with residuals of +-255, whose outputs leave
+    0..255; clipped with qstep 0 and residuals up to +-32767 (the row thread
+    clamps them); unclipped with qstep 24."""
+    import torch
+    from vcs_h264_tpu_torch.ops import intra, intra_cuda
+
+    rng = np.random.default_rng(9)
+    fast = intra_cuda.FAST_DECODE_ROWS
+    lossy, lossless = (24, True), (0, False)
+    cases = (
+        (2, 4, 4, (lossy, lossless)), (2, 8, 8, (lossy, lossless)),
+        (3, 8, 64, ((1, True),)), (2, 4, 40, (lossy,)),
+        (2, 48, 4, (lossy, lossless)),
+        (2, 20, 36, (lossy, lossless, (0, True), (24, False), (65535, True))),
+        (2, 64, 8, ((65535, True), (1, True))),
+        (140, 8, 16, (lossy, lossless)),
+        (1, 4 * (fast - 1), 12, (lossy,)),
+        (1, 4 * fast, 8, (lossy, lossless, (0, True))),
+        (1, 4 * (fast + 1), 8, (lossy,)),
+        (1, TALL_H, 8, (lossless,)),
+    )
+    n_cases = 0
+    for n, h, w, forms in cases:
+        for qstep, clip in forms:
+            for all_escape in ((False, True) if (h, w) == (20, 36)
+                               else (False,)):
+                if qstep:     # no int32 overflow in the inverse transform
+                    amp = min(32767, 2**31 // (100 * qstep))
+                else:
+                    amp = 32767 if clip else 255
+                res = rng.integers(-amp, amp + 1, (n, h, w))
+                if not qstep and not clip:
+                    res = rng.choice([-255, 255, 0], (n, h, w))
+                res = torch.from_numpy(res.astype(np.int16)).cuda()
+                modes = torch.from_numpy(rng.integers(
+                    -3, 13, (n, h // 4, w // 4)).astype(np.int8)).cuda()
+                esc = torch.from_numpy(
+                    np.ones((n, h // 4, w // 4), bool) if all_escape
+                    else rng.random((n, h // 4, w // 4)) < 0.1).cuda()
+                got = intra_cuda.intra_decode(res, modes, esc, qstep, clip)
+                want = intra.decode_planes_plain(res, modes, esc, qstep, clip)
+                what = (f"{n}x{h}x{w}, qstep {qstep}, clip {clip}"
+                        + (", all escape" if all_escape else ""))
+                if got.dtype != want.dtype or not torch.equal(got, want):
+                    fail(f"K6 differs from the plain version at {what}")
+                if not clip and not qstep and not all_escape and h > 8 \
+                        and 0 <= int(got.min()) and int(got.max()) <= 255:
+                    fail(f"the unclipped outputs never left 0..255 ({what})")
+                if earlier_has("vcs_intra_decode") and not torch.equal(
+                        earlier_intra_decode(res, modes, esc, qstep, clip)(),
+                        got):
+                    fail(f"K6 differs from the earlier build at {what}")
+                n_cases += 1
+    print(f"[edge K6] {n_cases} decodes of random streams identical to the "
+          "plain version"
+          + (" and to the earlier build"
+             if earlier_has("vcs_intra_decode") else "")
+          + f": one and two block rows and columns, ragged widths, {fast - 1}"
+          f", {fast} and {fast + 1} block rows, {TALL_H // 4} block rows, "
+          "140 planes; lossy clipped at qsteps 1, 24, 65535, lossless "
+          "unclipped at +-255, clipped at qstep 0, unclipped at qstep 24, "
+          "all-escape planes, modes -3 to 12")
+
+
+def intra_1080_phase(card: str) -> dict:
+    """K5 and K6 on 3 planes of 1080x1920 at qstep 24, a shape no path of
+    this script drives: identical to their plain versions, timed once. 270
+    block rows: K5 loops over its rows there, K6 takes its fast form."""
+    import torch
+    from vcs_h264_tpu_torch.ops import intra, intra_cuda
+
+    h, w = 1080, 1920
+    rng = np.random.default_rng(10)
+    coarse = torch.from_numpy(rng.uniform(0, 255, (1, 3, h // 16 + 2,
+                                                   w // 16 + 2)))
+    planes = (torch.nn.functional.interpolate(
+        coarse, size=(h, w), mode="bicubic", align_corners=False)[0]
+        + torch.from_numpy(rng.integers(-2, 3, (3, h, w)))
+        ).clamp(0, 255).round().to(torch.uint8).cuda()
+    k5, _, _ = check_intra(planes, QSTEP, "3 planes 1920x1080", full=False)
+    want = intra.decode_planes_plain(*k5[:3], QSTEP, True)
+    if not torch.equal(intra_cuda.intra_decode(*k5[:3], QSTEP, True), want):
+        fail("K6 differs from the plain version at 1920x1080")
+    steps = 2 * (h // 4 - 1) + w // 4
+    out = dict(
+        steps=steps,
+        encode_ms=kernel_ms(lambda: intra_cuda.intra_encode(planes, QSTEP)),
+        decode_ms=kernel_ms(lambda: intra_cuda.intra_decode(*k5[:3], QSTEP,
+                                                            True)),
+        earlier_decode_ms=earlier_decode_ms(*k5[:3], QSTEP, True,
+                                            "1920x1080"))
+    earlier = out["earlier_decode_ms"]
+    print(f"[time 1080p intra] 3 planes 1920x1080, qstep {QSTEP}, identical "
+          f"to the plain versions: K5 {out['encode_ms']:.4f} ms, "
+          f"{out['encode_ms'] / steps * 1e3:.3f} us a step; K6 "
+          f"{out['decode_ms']:.4f} ms, "
+          f"{out['decode_ms'] / steps * 1e3:.3f} us a step"
+          + ("" if earlier is None
+             else f", the earlier build's K6 {earlier:.4f} ms")
+          + f"; {steps} steps ({card})")
+    return out
+
+
 def intra_kernel_phase(planes, card: str, plain_reps: int = 3):
     """Phases 3d and 3h: K5/K6 vs plain versions on uint8 planes [N, H, W]
     on the card, with times and bounds."""
@@ -621,7 +900,9 @@ def intra_kernel_phase(planes, card: str, plain_reps: int = 3):
             **bound(nbytes(planes, *k5), planes.numel() * INTRA_ENC_OPS),
             library_ms=None),
         "intra_decode": dict(
-            max_abs_err=err6, steps=steps,
+            max_abs_err=err6, steps=steps, redesigned=True,
+            earlier_ms=earlier_decode_ms(q, modes, esc, QSTEP, True,
+                                         f"lossy, {n} planes {w}x{h}"),
             ms=kernel_ms(lambda: intra_cuda.intra_decode(q, modes, esc,
                                                          QSTEP, True)),
             plain_ms=time_ms(lambda: intra.decode_planes_plain(
@@ -641,8 +922,12 @@ def intra_kernel_phase(planes, card: str, plain_reps: int = 3):
               + f", plain {r['plain_ms']:.4f} ms, bound "
               f"{r['bound_ms']:.4f} ms by {r['bound_by']}, at N={n} {w}x{h} "
               f"qstep {QSTEP} ({card})")
-    print(f"[time intra_decode lossless] kernel {lossless_ms:.4f} ms at "
-          f"N={n} {w}x{h} ({card})")
+    earlier = earlier_decode_ms(*lossless, 0, False,
+                                f"lossless, {n} planes {w}x{h}")
+    print(f"[time intra_decode lossless] kernel {lossless_ms:.4f} ms"
+          + ("" if earlier is None
+             else f", the earlier build {earlier:.4f} ms")
+          + f" at N={n} {w}x{h} ({card})")
     return results
 
 
@@ -730,6 +1015,8 @@ def kernel_phase(frames, card: str):
         if p_max > 1 or p_frac > 1e-4:
             fail(f"K4 pixels outside the bound ({name} mv)")
         enc_err, dec_err = max(enc_err, e_max), max(dec_err, p_max)
+        if name == "random":      # the searched vectors' turn comes below
+            earlier_fused_decode_ms(mv, refs, co_p, qf, "random vectors")
 
     co = inter_cuda.encode_p_coeffs_plain(mv_p, refs, curs, qf)
     results["fused_p_encode"] = dict(
@@ -739,12 +1026,19 @@ def kernel_phase(frames, card: str):
             mv_p, refs, curs, qf), 10),
         **coded_bound(mv_p, refs, curs, co, True), library_ms=None)
     results["fused_p_decode"] = dict(
-        max_abs_err=dec_err,
+        max_abs_err=dec_err, redesigned=True,
+        earlier_ms=earlier_fused_decode_ms(mv_p, refs, co, qf,
+                                           "searched vectors"),
         ms=kernel_ms(lambda: inter_cuda.fused_p_decode(mv_p, refs, co, qf)),
         plain_ms=time_ms(lambda: inter_cuda.decode_p_frames_plain(
             mv_p, refs, co, qf), 10),
         **coded_bound(mv_p, refs, co, curs, True), library_ms=None)
     print_times(results, f"G={GOPS} F={P_PER_GOP} {W}x{H}", card)
+    earlier = results["fused_p_decode"]["earlier_ms"]
+    if earlier is not None:
+        print(f"[K4 fused_p_decode] identical to the earlier build on "
+              f"searched and random vectors; the earlier build takes "
+              f"{earlier:.4f} ms ({card})")
     return results
 
 
@@ -1280,7 +1574,8 @@ def main() -> int:
     ap.add_argument("--profile", action="store_true",
                     help="profile each path once instead of checking")
     ap.add_argument("--earlier", metavar="DIR",
-                    help="time the K2 and K5 of the sources in DIR as well")
+                    help="time the K2, K4, K5 and K6 of the sources in DIR "
+                    "as well")
     args = ap.parse_args()
 
     import torch
@@ -1315,8 +1610,10 @@ def main() -> int:
         return 0
 
     edge_shape_phase()
+    fused_decode_edge_phase()
     search_edge_phase()
     intra_edge_phase()
+    decode_edge_phase()
     compensate_edge_phase()
     plane_edge_phase()
     kernels = kernel_phase(frames, card)
@@ -1324,6 +1621,7 @@ def main() -> int:
     kernels.update(intra_kernel_phase(
         torch.from_numpy(i_frames).cuda().permute(0, 3, 1, 2)
         .reshape(-1, H, W).contiguous(), card))             # [24, H, W]
+    intra_1080_phase(card)
     kernels.update(compensate_kernel_phase(frames, card))
     kernels.update(plane_kernel_phase(frames, card))
 

@@ -1,4 +1,4 @@
-"""The integer identities that the K2 and K5 CUDA kernels of
+"""The identities that the K2, K4, K5 and K6 CUDA kernels of
 vcs_h264_tpu_torch rely on, held on the CPU with numpy from a seed:
 
   * K2 (`csrc/motion_sad.cu`) takes four byte differences in one 32-bit word:
@@ -8,7 +8,18 @@ vcs_h264_tpu_torch rely on, held on the CPU with numpy from a seed:
     number of `ops.intra_cuda.quant_magic`, the routine the wrapper itself
     calls at every launch;
   * K2 decides "static" before it searches, so the vectors may not depend on
-    the candidate SADs of a static block.
+    the candidate SADs of a static block;
+  * K6 (`csrc/intra_wavefront.cu`, the clipped form) predicts with K5's
+    `predict_all`, all nine modes as packed rows, and selects the mode's rows;
+    adds the residual and clips two pixels at a time in 16-bit halves; takes
+    the residual clamped to [-255, 255]; and lets two warps write finished
+    groups of blocks out on a schedule that is arithmetic on the step
+    number: `packed_predictors`, `add_clip_rows` and `flush_schedule` below
+    repeat the kernel's expressions;
+  * K4 (`csrc/inter_fused.cu`) runs each 8-point pass in one thread's
+    registers in the order `ops/dct.py` sums in, cuts an 8-byte reference row
+    out of aligned words, and exchanges values between the passes through a
+    skewed shared buffer that no access pattern may hit with a bank conflict.
 """
 
 import numpy as np
@@ -21,7 +32,7 @@ torch.set_num_threads(2)
 
 from vcs_h264_tpu.ops import motion as jmotion  # noqa: E402
 
-from vcs_h264_tpu_torch.ops import intra, motion  # noqa: E402
+from vcs_h264_tpu_torch.ops import dct, intra, motion  # noqa: E402
 from vcs_h264_tpu_torch.ops.intra_cuda import quant_magic  # noqa: E402
 
 HIGH = np.uint32(0x80808080)
@@ -204,3 +215,358 @@ def test_static_decision_before_the_search_changes_nothing(rng, kind, th):
     if kind == "mixed" and th in (666, 2000):
         frac = float((motion.static_sad(tc, tr[:, None], 8) <= th).float().mean())
         assert 0.0 < frac < 1.0          # both branches are exercised
+
+
+# --- K6: packed predictors ---------------------------------------------------
+
+M32 = 0xffffffff
+
+
+def _pk(a, b, c, d):
+    return (a | (b << 8) | (c << 16) | (d << 24)) & M32
+
+
+def _rep4(v):
+    return (v * 0x01010101) & M32
+
+
+def _byte(w, k):
+    return (w >> (8 * k)) & 255
+
+
+def _funnel_r(lo, hi, shift):
+    """`__funnelshift_r(lo, hi, shift)`: the low word of (hi:lo) >> shift."""
+    return (((hi << 32) | lo) >> (shift & 31)) & M32
+
+
+def _f3(a, b, c):
+    return (a >> 2) + (b >> 1) + (c >> 2)
+
+
+def _f2(a, b):
+    return (a >> 1) + (b >> 1)
+
+
+def _w3(x, wrap):
+    return np.where(wrap, (3 * x) & 255, 3 * x)
+
+
+def packed_predictors(U, L, UR, ul, a_u, a_l, a_ur):
+    """`predict_all` of the kernel, expression for expression, on int64
+    arrays: packed neighbours -> p[mode][row] packed rows."""
+    u0, u1, u2, u3 = (_byte(U, k) for k in range(4))
+    l0, l1, l2, l3 = (_byte(L, k) for k in range(4))
+    r0, r1, r2, r3 = (_byte(UR, k) for k in range(4))
+    p = [[None] * 4 for _ in range(9)]
+    p[0] = [U] * 4
+    p[1] = [_rep4(l0), _rep4(l1), _rep4(l2), _rep4(l3)]
+    v = [u0 + l0, u1 + l1, u2 + l2, u3 + l3]
+    s = np.where(a_u & a_l, sum(x & 255 for x in v), sum(v))
+    p[2] = [_rep4(s >> 3)] * 4
+    t6 = (r2 >> 2) + (_w3(r3, a_ur) >> 2)
+    lo = _pk(_f3(u0, u1, u2), _f3(u1, u2, u3), _f3(u2, u3, r0), _f3(u3, r0, r1))
+    hi = _pk(_f3(r0, r1, r2), _f3(r1, r2, r3), t6, 0)
+    p[3] = [lo] + [_funnel_r(lo, hi, 8 * r) for r in range(1, 4)]
+    d0, d1 = _f3(l1, l2, l3), _f3(l0, l1, l2)
+    d2 = (u0 >> 2) + (l0 >> 1) + (l1 >> 2)
+    d3 = (ul >> 2) + (u0 >> 1) + (l0 >> 2)
+    d4, d5, d6 = _f3(ul, u0, u1), _f3(u0, u1, u2), _f3(u1, u2, u3)
+    ulu = (u0 >> 2) + (ul >> 1) + (l0 >> 2)
+    lo, hi = _pk(d0, d1, d2, d3), _pk(d4, d5, d6, 0)
+    p[4] = [_funnel_r(lo, hi, 8 * (3 - r)) for r in range(3)] + [lo]
+    a = _pk(_f2(ul, u0), _f2(u0, u1), _f2(u1, u2), _f2(u2, u3))
+    b = _pk(ulu, d4, d5, d6)
+    p[5] = [a, b, ((a << 8) & M32) | _f3(ul, l0, l1), ((b << 8) & M32) | d1]
+    r0w = _pk(_f2(ul, l0), ulu, d4, d5)
+    r1w = ((r0w << 16) & M32) | _pk(_f2(l0, l1), _f3(ul, l1, l2), 0, 0)
+    r2w = ((r1w << 16) & M32) | _pk(_f2(l1, l2), d1, 0, 0)
+    p[6] = [r0w, r1w, r2w, ((r2w << 16) & M32) | _pk(_f2(l2, l3), d0, 0, 0)]
+    a = _pk(_f2(u0, u1), _f2(u1, u2), _f2(u2, u3), _f2(u3, r0))
+    b = _pk(d5, d6, _f3(u2, u3, r0), _f3(u3, r0, r1))
+    p[7] = [a, b, (a >> 8) | (_f2(r0, r1) << 24), (b >> 8) | (_f3(r0, r1, r2) << 24)]
+    b2, b3 = _f2(l2, l3), (l2 >> 2) + (_w3(l3, a_l) >> 2)
+    r0w = _pk(_f2(l0, l1), d1, _f2(l1, l2), d0)
+    p[8] = [r0w, (r0w >> 16) | _pk(0, 0, b2, b3), _pk(b2, b3, l3, l3), _rep4(l3)]
+    return p
+
+
+def _neighbour_cases(rng, n):
+    """n random neighbourhoods for each of the availability cases a block
+    can meet, filled as the kernel fills them: 128 where a neighbour is
+    missing, ur = u[3] four times without an upper-right block."""
+    out = []
+    for a_u, a_l, a_ur in ((0, 0, 0), (0, 1, 0), (1, 0, 0), (1, 0, 1),
+                           (1, 1, 0), (1, 1, 1)):
+        u = rng.integers(0, 256, (n, 4)) if a_u else np.full((n, 4), 128)
+        l = rng.integers(0, 256, (n, 4)) if a_l else np.full((n, 4), 128)
+        ul = rng.integers(0, 256, n) if a_u and a_l else np.full(n, 128)
+        ur = rng.integers(0, 256, (n, 4)) if a_ur \
+            else np.repeat(u[:, 3:], 4, axis=1)
+        # the corners that make the wraps bite
+        u[: n // 4], l[: n // 8] = np.minimum(u[: n // 4] | 0xc0, 255), 255
+        if not a_u:
+            u[:] = 128
+        if not a_l:
+            l[:] = 128
+        if not a_ur:
+            ur = np.repeat(u[:, 3:], 4, axis=1)
+        out.append((u, l, ul, ur, np.full(n, bool(a_u)), np.full(n, bool(a_l)),
+                    np.full(n, bool(a_ur))))
+    return [np.concatenate(x) for x in zip(*out)]
+
+
+def _pack4(x):
+    return _pk(x[:, 0], x[:, 1], x[:, 2], x[:, 3])
+
+
+@pytest.mark.parametrize("mode", range(9))
+def test_packed_predictor_rows_equal_the_plain_predictors(rng, mode):
+    u, l, ul, ur, a_u, a_l, a_ur = _neighbour_cases(rng, 400)
+    want = intra._preds9(*(torch.from_numpy(x.astype(np.int32))
+                           for x in (u, l, ul, ur)),
+                         *(torch.from_numpy(x) for x in (a_u, a_l, a_ur))
+                         )[mode].numpy()
+    assert want.min() >= 0 and want.max() <= 255     # a byte holds each
+    p = packed_predictors(_pack4(u), _pack4(l), _pack4(ur), ul, a_u, a_l,
+                          a_ur)
+    got = np.stack([np.stack([_byte(p[mode][r], c) for c in range(4)], -1)
+                    for r in range(4)], 1)
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("mode", [-128, -3, -1, 0, 4, 8, 9, 12, 127])
+def test_selected_rows_are_the_modes_or_zero(rng, mode):
+    """The kernel's select, `sel = mode == m ? p[m][rr] : sel` from zero,
+    against `_pick`: a mode outside 0..8 (an escape enters as -1) predicts
+    zero."""
+    u, l, ul, ur, a_u, a_l, a_ur = _neighbour_cases(rng, 50)
+    p = packed_predictors(_pack4(u), _pack4(l), _pack4(ur), ul, a_u, a_l,
+                          a_ur)
+    preds = intra._preds9(*(torch.from_numpy(x.astype(np.int32))
+                            for x in (u, l, ul, ur)),
+                          *(torch.from_numpy(x) for x in (a_u, a_l, a_ur)))
+    n = u.shape[0]
+    want = intra._pick(preds, torch.full((n,), mode, dtype=torch.int32),
+                       torch.zeros(n, dtype=torch.bool)).numpy()
+    for rr in range(4):
+        sel = np.zeros(n, dtype=np.int64)
+        for m in range(9):
+            sel = np.where(mode == m, p[m][rr], sel)
+        got = np.stack([_byte(sel, c) for c in range(4)], -1)
+        np.testing.assert_array_equal(got, want[:, rr])
+
+
+# --- K6: add and clip in 16-bit halves ---------------------------------------
+
+
+def _byte_perm(x, y, sel):
+    """`__byte_perm(x, y, sel)`: byte i of the result is byte sel[i] of the
+    eight bytes (y:x)."""
+    both = (y << 32) | x
+    out = 0
+    for i in range(4):
+        out = out | (((both >> (8 * ((sel >> (4 * i)) & 7))) & 255) << (8 * i))
+    return out
+
+
+def _halves(w):
+    """The two signed 16-bit halves of a word."""
+    lo, hi = w & 0xffff, (w >> 16) & 0xffff
+    return (np.where(lo >= 0x8000, lo - 0x10000, lo),
+            np.where(hi >= 0x8000, hi - 0x10000, hi))
+
+
+def _word(lo, hi):
+    return (lo & 0xffff) | ((hi & 0xffff) << 16)
+
+
+def _viaddmin_relu(a, b, c):
+    """`__viaddmin_s16x2_relu`: max(min(a + b, c), 0) in each half."""
+    (a0, a1), (b0, b1), (c0, c1) = _halves(a), _halves(b), _halves(c)
+    return _word(np.maximum(np.minimum(a0 + b0, c0), 0),
+                 np.maximum(np.minimum(a1 + b1, c1), 0))
+
+
+def add_clip_rows(sel, ra, rb):
+    """The kernel's reconstruction of one row: prediction bytes `sel`,
+    residual halves (ra: pixels 0, 1; rb: pixels 2, 3) -> packed bytes."""
+    lo = _viaddmin_relu(_byte_perm(sel, 0, 0x4140), ra, 0x00ff00ff)
+    hi = _viaddmin_relu(_byte_perm(sel, 0, 0x4342), rb, 0x00ff00ff)
+    return _byte_perm(lo, hi, 0x6420)
+
+
+@pytest.mark.parametrize("lane", range(4))
+def test_packed_add_and_clip_on_every_byte_and_residual(lane):
+    """All 256 x 511 pairs of a predicted byte and a residual in [-255,
+    255] in one lane, the other lanes at their corners."""
+    pred, res = np.meshgrid(np.arange(256), np.arange(-255, 256),
+                            indexing="ij")
+    pred, res = pred.reshape(-1), res.reshape(-1)
+    for other_p, other_r in ((0, -255), (255, 255), (0, 255), (255, -255)):
+        p4 = np.full((pred.size, 4), other_p, dtype=np.int64)
+        r4 = np.full((pred.size, 4), other_r, dtype=np.int64)
+        p4[:, lane], r4[:, lane] = pred, res
+        got = add_clip_rows(_pack4(p4), _word(r4[:, 0], r4[:, 1]),
+                            _word(r4[:, 2], r4[:, 3]))
+        want = np.clip(p4 + r4, 0, 255)
+        np.testing.assert_array_equal(
+            np.stack([_byte(got, c) for c in range(4)], -1), want)
+
+
+@pytest.mark.parametrize("bound", [255, 256, 32767, 2**28])
+def test_clamped_residual_reconstructs_the_same_pixel(bound):
+    """clip(p + r) == clip(p + clamp(r, -255, 255)) for a prediction in
+    0..255: what lets the residual travel as a clamped int16."""
+    p = np.arange(256)[:, None]
+    r = np.concatenate([np.arange(-300, 301), [-bound, bound, 1 - bound,
+                                               bound - 1]])[None, :]
+    np.testing.assert_array_equal(
+        np.clip(p + r, 0, 255), np.clip(p + np.clip(r, -255, 255), 0, 255))
+
+
+# --- K6: the flush schedule --------------------------------------------------
+
+GROUP, FLUSH_WARPS = 8, 2
+
+
+def flush_schedule(nbh, nbw, t, flusher):
+    """The (row, group, blocks) a flush warp writes out in step t: the
+    kernel's arithmetic, line for line."""
+    out = []
+    tp = t - 1
+    s = tp if tp & 1 else tp - 1
+    if s >= GROUP - 1:
+        top = (s - (GROUP - 1)) // 2
+        j_lo = (top - nbh + 4) // 4 if top >= nbh else 0
+        j_hi = min(top // 4, nbw // GROUP - 1)
+        j = j_lo + 2 * (tp - s) + flusher
+        while j <= j_hi:
+            out.append((top - 4 * j, j, GROUP))
+            j += 2 * FLUSH_WARPS
+    twice = tp - (nbw - 1)
+    if flusher == 0 and nbw % GROUP and twice >= 0 and not twice & 1 \
+            and twice // 2 < nbh:
+        out.append((twice // 2, nbw // GROUP, nbw % GROUP))
+    return out
+
+
+@pytest.mark.parametrize("nbh,nbw", [
+    (1, 1), (1, 2), (2, 1), (2, 2), (1, 8), (1, 9), (3, 7), (5, 9), (2, 16),
+    (7, 24), (12, 2), (40, 3), (66, 2), (33, 17), (90, 160), (180, 320),
+    (270, 480), (288, 2), (288, 40)])
+def test_flush_writes_every_block_once_before_it_is_overwritten(nbh, nbw):
+    """Simulates the clipped decode's steps: row threads stage block (bi,
+    t - 2 bi) in one of their row's two group tiles, the flush warps write
+    groups out in the same step without a barrier between them. Every block
+    must leave exactly once, as the block it is, and no tile may be written
+    by its row in a step in which it is flushed."""
+    steps = 2 * (nbh - 1) + nbw
+    stage = np.full((nbh, 2, GROUP), -1, dtype=np.int64)
+    written = np.zeros((nbh, nbw), dtype=np.int64)
+    for t in range(steps + 2):
+        staged_now = set()
+        rows = np.arange(nbh)
+        bj = t - 2 * rows
+        live = (bj >= 0) & (bj < nbw)
+        for bi, j in zip(rows[live], bj[live]):
+            staged_now.add((int(bi), int(j // GROUP) & 1))
+        for flusher in range(FLUSH_WARPS):
+            for row, j, n in flush_schedule(nbh, nbw, t, flusher):
+                assert 0 <= row < nbh and 0 <= j * GROUP < nbw
+                assert (row, j & 1) not in staged_now
+                np.testing.assert_array_equal(
+                    stage[row, j & 1, :n],
+                    row * nbw + GROUP * j + np.arange(n))
+                written[row, GROUP * j:GROUP * j + n] += 1
+        stage[rows[live], (bj[live] // GROUP) & 1, bj[live] % GROUP] = \
+            rows[live] * nbw + bj[live]
+    np.testing.assert_array_equal(written, 1)
+
+
+# --- K4: one thread's passes, the reference row, the exchange buffer ---------
+
+
+def register_idct(x, d):
+    """K4's two passes on float32 blocks [..., 8, 8]: the thread of column k
+    forms T[i][k] = sum_j D[j][i] X[j][k], the thread of row i forms Z[i][l]
+    = sum_k T[i][k] D[k][l], each from acc = 0 by acc = acc + d * x with
+    every product and sum rounded to float32, j and k ascending."""
+    x, d = x.astype(np.float32), d.astype(np.float32)
+    t = np.zeros_like(x)
+    for i in range(8):
+        acc = np.zeros(x.shape[:-2] + (8,), dtype=np.float32)
+        for j in range(8):
+            acc = acc + d[j, i] * x[..., j, :]
+        t[..., i, :] = acc
+    z = np.zeros_like(x)
+    for l in range(8):
+        acc = np.zeros(x.shape[:-2] + (8,), dtype=np.float32)
+        for k in range(8):
+            acc = acc + t[..., :, k] * d[k, l]
+        z[..., :, l] = acc
+    return z
+
+
+@pytest.mark.parametrize("kind", ["coded", "dense", "extreme"])
+def test_register_passes_equal_idct2_blocks(rng, kind):
+    if kind == "coded":              # sparse dequantised coefficients
+        x = rng.integers(-40, 41, (500, 8, 8)) * (rng.random((500, 8, 8)) < .1)
+        x = x * rng.integers(1, 100, (8, 8))
+    elif kind == "dense":
+        x = rng.integers(-2000, 2001, (500, 8, 8))
+    else:
+        x = rng.choice([-32767.0 * 255, 32767.0 * 255, 0.0], (500, 8, 8))
+    x = x.astype(np.float32)
+    d = dct.dct_matrix_np(8).astype(np.float32)
+    want = dct.idct2_blocks(torch.from_numpy(x)).numpy()
+    got = register_idct(x, d)
+    assert got.dtype == np.float32
+    np.testing.assert_array_equal(got, want)
+
+
+def load_row8(words, byte_at):
+    """K4's `load_row8`: the 8 bytes from `byte_at` on, out of aligned
+    32-bit words; the third word is read only where the bytes reach it."""
+    s = byte_at & 3
+    w = byte_at >> 2
+    a, b = int(words[w]), int(words[w + 1])
+    c = int(words[w + 2]) if s else 0
+    return _funnel_r(a, b, 8 * s), _funnel_r(b, c, 8 * s)
+
+
+@pytest.mark.parametrize("offset", range(8))
+def test_shifted_words_give_the_row_at_every_byte_offset(rng, offset):
+    """Rows of 24 bytes; a source block may start at any byte up to W - 8,
+    and the last start must not read past the row."""
+    row = rng.integers(0, 256, 24, dtype=np.uint8)
+    words = row.view(np.uint32)
+    for start in range(offset, 24 - 8 + 1, 8):
+        lo, hi = load_row8(words, start)       # IndexError = read past the row
+        got = [_byte(lo, k) for k in range(4)] + [_byte(hi, k) for k in range(4)]
+        assert got == row[start:start + 8].tolist()
+
+
+STRIP, K_STRIDE = 16, 8 * 16 + 4
+
+
+def _exchange_at(b, row, k):
+    return k * K_STRIDE + row * STRIP + b
+
+
+@pytest.mark.parametrize("side", ["rows write or read", "columns read or write"])
+def test_exchange_buffer_has_no_bank_conflict(side):
+    """The 32 lanes of every warp, in every one of its accesses, fall on 32
+    different banks: as (block, row) threads, tid = row * 16 + block, with k
+    fixed an instruction; as (block, column) threads, tid = block * 8 + k,
+    with the row fixed. And no two values share a word."""
+    cells = {_exchange_at(b, r, k) for b in range(STRIP) for r in range(8)
+             for k in range(8)}
+    assert len(cells) == STRIP * 64 and max(cells) < 8 * K_STRIDE
+    for warp in range(4):
+        tids = np.arange(32 * warp, 32 * warp + 32)
+        for fixed in range(8):
+            if side.startswith("rows"):
+                at = _exchange_at(tids % STRIP, tids // STRIP, fixed)
+            else:
+                at = _exchange_at(tids // 8, fixed, tids % 8)
+            assert len(set((at % 32).tolist())) == 32

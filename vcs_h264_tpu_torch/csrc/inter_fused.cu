@@ -27,11 +27,12 @@
 // What bounds them on an H100: device-memory traffic. Per pixel and
 // channel, encode reads 1 byte of cur and 1 byte of ref and writes 2 bytes;
 // decode reads 2 + 1 and writes 1. The 16 multiply-adds per output of the
-// two 8-point passes are far below the ALU limit. Design: one thread per
-// pixel (all three channels), 64 threads per block, four neighbouring
+// two 8-point passes are far below the ALU limit. Design of K3: one thread
+// per pixel (all three channels), 64 threads per block, four neighbouring
 // blocks of one row per CTA so each warp touches contiguous row segments;
 // the row and column DCT passes exchange through shared memory, and nothing
-// but the inputs and the final output touches device memory.
+// but the inputs and the final output touches device memory. K4 has since
+// been rebuilt around wide accesses and register passes: see its own note.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -127,67 +128,174 @@ __global__ void fused_p_encode_kernel(const int32_t* __restrict__ mv,
   }
 }
 
-// grid (ceil(nbw / 4), nbh, G*F), block (64, 4)
-__global__ void fused_p_decode_kernel(const int32_t* __restrict__ mv,
-                                      const uint8_t* __restrict__ refs,
-                                      const int16_t* __restrict__ coeffs,
-                                      const float* __restrict__ tabs,
-                                      uint8_t* __restrict__ out,
-                                      int F, int H, int W) {
-  __shared__ Tables t;
-  __shared__ float xa[kBlocksPerCta][3][kPix];
-  __shared__ float xb[kBlocksPerCta][3][kPix];
-  const int p = threadIdx.x, sub = threadIdx.y;
-  load_tables(t, tabs, sub * kPix + p, kPix * kBlocksPerCta);
-  __syncthreads();
+// ---- K4: the decode, a strip of blocks to a CTA ---------------------------
+//
+// Bound by bytes (2 + 1 bytes in and 1 out per sample); what kept the first
+// version at six times that bound was how it moved them: a thread a pixel, so
+// a warp touched four rows of 8 px (half a sector a coefficient load, a
+// quarter a reference load or a store, one byte a thread), 64-thread blocks
+// with three barriers and a table load from device memory each, 48 shared
+// loads a sample in the two passes, and the block's vector read 64 times.
+//
+// Here a CTA takes kStrip neighbouring blocks of one block row, all three
+// channels, with one thread per block and row (or column):
+//   * load: the thread of (block, row) reads its row's 8 coefficients of each
+//     channel as one 16-byte word, so a warp reads two pixel rows of the
+//     strip, 256 contiguous bytes each; it dequantises them and leaves them
+//     in shared memory;
+//   * first pass: the thread of (block, column k) reads X[0..7][k], and forms
+//     T[0..7][k] in registers, D coming from the kernel's parameters (the
+//     constant bank: no load instruction in the loop);
+//   * second pass, after a second exchange through shared memory: the thread
+//     of (block, row i) forms Z[i][0..7] of the three channels, runs the
+//     inverse RCT on them, adds the compensated reference row and stores 8
+//     bytes a channel, so a warp writes two runs of 128 contiguous bytes.
+// Both exchanges go through one buffer of 12.7 KB (a second one measured 8 %
+// slower: fewer CTAs an SM), laid out [k][row][block] with 4 words of skew a
+// k, which makes both sides of both exchanges free of bank conflicts. The
+// reference row starts at any byte: it is cut out of three aligned words
+// with __funnelshift_r. The vector is read once a thread, 8 times a block.
+//
+// Every float operation of the first version and its order are kept: each
+// output is acc = 0, acc = acc + d[j] * x[j] for j = 0..7 with every product
+// and sum rounded, then the inverse RCT with true divisions, so the frames
+// are the same bit for bit.
 
+constexpr int kStrip = 16;                 // blocks of one block row a CTA takes
+constexpr int kKStride = kBs * kStrip + 4; // words between two k of an exchange buffer
+
+// [D, QY, QC] as the kernel's parameter
+struct DecodeTables {
+  float d[kPix];
+  float q[2][kPix];
+};
+
+// where value (row, k) of block b lies in an exchange buffer
+__device__ __forceinline__ int exchange_at(int b, int row, int k) {
+  return k * kKStride + row * kStrip + b;
+}
+
+// The 8 bytes that start at p, which may be any byte of a tensor whose own
+// start lies on a 4-byte boundary and whose rows are multiples of 4 long: cut
+// out of the aligned words around them. The third word is read only where
+// the bytes reach into it, so nothing past the 8 bytes' last word is touched.
+__device__ __forceinline__ uint2 load_row8(const uint8_t* p) {
+  const unsigned s = static_cast<unsigned>(reinterpret_cast<uintptr_t>(p) & 3u);
+  const uint32_t* w = reinterpret_cast<const uint32_t*>(p - s);
+  const uint32_t a = w[0], b = w[1], c = s ? w[2] : 0u;
+  return make_uint2(__funnelshift_r(a, b, 8 * s), __funnelshift_r(b, c, 8 * s));
+}
+
+__device__ __forceinline__ int byte_at(uint2 v, int k) {
+  return static_cast<int>(((k < 4 ? v.x : v.y) >> (8 * (k & 3))) & 255u);
+}
+
+// grid (ceil(nbw / kStrip), nbh, G*F), block (kStrip * kBs)
+__global__ void __launch_bounds__(kStrip * kBs) fused_p_decode_kernel(
+    const int32_t* __restrict__ mv, const uint8_t* __restrict__ refs,
+    const int16_t* __restrict__ coeffs, const __grid_constant__ DecodeTables t,
+    uint8_t* __restrict__ out, int F, int H, int W) {
+  __shared__ float xs[3][kBs * kKStride];
+  const int tid = threadIdx.x;
   const int nbh = H / kBs, nbw = W / kBs;
   const size_t gf = blockIdx.z;
   const int g = static_cast<int>(gf / F);
-  const int bi = blockIdx.y, bj = blockIdx.x * kBlocksPerCta + sub;
-  const bool active = bj < nbw;
-  const int py = p / kBs, px = p % kBs;
+  const int bi = blockIdx.y, bj0 = blockIdx.x * kStrip;
   const size_t plane = static_cast<size_t>(H) * W;
-  const int y = bi * kBs + py, x = bj * kBs + px;
 
-  if (active) {
-    const int16_t* co = coeffs + gf * 3 * plane + static_cast<size_t>(y) * W + x;
-    for (int c = 0; c < 3; ++c)
-      xa[sub][c][p] = __fmul_rn(static_cast<float>(co[c * plane]), t.q[c == 0 ? 0 : 1][p]);
-  }
-  __syncthreads();
-  if (active) {
-    // T[i][k] = sum_j D[j][i] X[j][k]
-    for (int c = 0; c < 3; ++c) {
-      float acc = 0.0f;
-      for (int j = 0; j < kBs; ++j)
-        acc = __fadd_rn(acc, __fmul_rn(t.d[j * kBs + py], xa[sub][c][j * kBs + px]));
-      xb[sub][c][p] = acc;
-    }
-  }
-  __syncthreads();
-  if (active) {
-    // Z[i][l] = sum_k T[i][k] D[k][l]
-    float v[3];
-    for (int c = 0; c < 3; ++c) {
-      float acc = 0.0f;
-      for (int k = 0; k < kBs; ++k)
-        acc = __fadd_rn(acc, __fmul_rn(xb[sub][c][py * kBs + k], t.d[k * kBs + px]));
-      v[c] = acc;
-    }
-    const float r = __fadd_rn(v[0], __fdiv_rn(v[1], 0.713f));
-    const float b = __fadd_rn(v[0], __fdiv_rn(v[2], 0.564f));
-    const float gg = __fdiv_rn(__fsub_rn(__fsub_rn(v[0], __fmul_rn(0.299f, r)), __fmul_rn(0.114f, b)),
-                               0.587f);
-    const int res[3] = {__float2int_rn(b), __float2int_rn(gg), __float2int_rn(r)};
-
+  // as (block, row): tid = row * kStrip + block, for the load, the second
+  // pass and the store
+  const int rb = tid % kStrip, row = tid / kStrip;
+  const bool r_active = bj0 + rb < nbw;
+  const size_t at = static_cast<size_t>(bi * kBs + row) * W + static_cast<size_t>(bj0 + rb) * kBs;
+  uint2 ref[3] = {};
+  if (r_active) {
+    const int16_t* co = coeffs + gf * 3 * plane + at;
+    int4 raw[3];
+#pragma unroll
+    for (int c = 0; c < 3; ++c) raw[c] = *reinterpret_cast<const int4*>(co + c * plane);
+    // the reference row is asked for here, long before it is used
     int i0, j0;
-    source_origin(mv, gf, nbh, nbw, bi, bj, H, W, i0, j0);
-    const uint8_t* ref = refs + static_cast<size_t>(g) * 3 * plane
-                         + static_cast<size_t>(i0 + py) * W + j0 + px;
-    uint8_t* o = out + gf * 3 * plane + static_cast<size_t>(y) * W + x;
+    source_origin(mv, gf, nbh, nbw, bi, bj0 + rb, H, W, i0, j0);
+    const uint8_t* rp = refs + static_cast<size_t>(g) * 3 * plane + static_cast<size_t>(i0 + row) * W + j0;
+#pragma unroll
+    for (int c = 0; c < 3; ++c) ref[c] = load_row8(rp + c * plane);
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      const int w4[4] = {raw[c].x, raw[c].y, raw[c].z, raw[c].w};
+#pragma unroll
+      for (int k = 0; k < kBs; ++k) {
+        const int v = (k & 1) ? (w4[k >> 1] >> 16) : static_cast<int>(static_cast<int16_t>(w4[k >> 1] & 0xffff));
+        xs[c][exchange_at(rb, row, k)] =
+            __fmul_rn(static_cast<float>(v), t.q[c == 0 ? 0 : 1][row * kBs + k]);
+      }
+    }
+  }
+  __syncthreads();
+  {
+    // as (block, column): tid = block * kBs + k. T[i][k] = sum_j D[j][i] X[j][k],
+    // formed in registers and put back where X was once every thread has read
+    const int cb = tid / kBs, k = tid % kBs;
+    const bool c_active = bj0 + cb < nbw;
+    float tt[3][kBs];
+    if (c_active) {
+#pragma unroll
+      for (int c = 0; c < 3; ++c) {
+        float x[kBs];
+#pragma unroll
+        for (int j = 0; j < kBs; ++j) x[j] = xs[c][exchange_at(cb, j, k)];
+#pragma unroll
+        for (int i = 0; i < kBs; ++i) {
+          float acc = 0.0f;
+#pragma unroll
+          for (int j = 0; j < kBs; ++j) acc = __fadd_rn(acc, __fmul_rn(t.d[j * kBs + i], x[j]));
+          tt[c][i] = acc;
+        }
+      }
+    }
+    __syncthreads();
+    if (c_active) {
+#pragma unroll
+      for (int c = 0; c < 3; ++c)
+#pragma unroll
+        for (int i = 0; i < kBs; ++i) xs[c][exchange_at(cb, i, k)] = tt[c][i];
+    }
+  }
+  __syncthreads();
+  if (r_active) {
+    // Z[i][l] = sum_k T[i][k] D[k][l], i = row
+    float z[3][kBs];
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      float x[kBs];
+#pragma unroll
+      for (int k = 0; k < kBs; ++k) x[k] = xs[c][exchange_at(rb, row, k)];
+#pragma unroll
+      for (int l = 0; l < kBs; ++l) {
+        float acc = 0.0f;
+#pragma unroll
+        for (int k = 0; k < kBs; ++k) acc = __fadd_rn(acc, __fmul_rn(x[k], t.d[k * kBs + l]));
+        z[c][l] = acc;
+      }
+    }
+    uint32_t packed[3][2] = {};
+#pragma unroll
+    for (int l = 0; l < kBs; ++l) {
+      const float r = __fadd_rn(z[0][l], __fdiv_rn(z[1][l], 0.713f));
+      const float b = __fadd_rn(z[0][l], __fdiv_rn(z[2][l], 0.564f));
+      const float gg = __fdiv_rn(__fsub_rn(__fsub_rn(z[0][l], __fmul_rn(0.299f, r)), __fmul_rn(0.114f, b)),
+                                 0.587f);
+      const int res[3] = {__float2int_rn(b), __float2int_rn(gg), __float2int_rn(r)};
+#pragma unroll
+      for (int c = 0; c < 3; ++c) {
+        const int v = min(max(byte_at(ref[c], l) + res[c], 0), 255);
+        packed[c][l >> 2] |= static_cast<uint32_t>(v) << (8 * (l & 3));
+      }
+    }
+    uint8_t* o = out + gf * 3 * plane + at;
+#pragma unroll
     for (int c = 0; c < 3; ++c)
-      o[c * plane] = static_cast<uint8_t>(min(max(static_cast<int>(ref[c * plane]) + res[c], 0), 255));
+      *reinterpret_cast<uint2*>(o + c * plane) = make_uint2(packed[c][0], packed[c][1]);
   }
 }
 
@@ -205,14 +313,22 @@ extern "C" int vcs_fused_p_encode(const void* mv, const void* refs, const void* 
   return static_cast<int>(cudaGetLastError());
 }
 
+// tabs_host: the 192 floats [D, QY, QC] in host memory; they travel as the
+// kernel's parameter. coeffs must start on a 16-byte boundary, out on an 8-byte
+// and refs on a 4-byte one (the wrapper checks).
 extern "C" int vcs_fused_p_decode(const void* mv, const void* refs, const void* coeffs,
-                                  const void* tabs, void* out, int G, int F, int H, int W,
+                                  const void* tabs_host, void* out, int G, int F, int H, int W,
                                   void* stream) {
-  dim3 grid((W / kBs + kBlocksPerCta - 1) / kBlocksPerCta, H / kBs, G * F);
-  dim3 block(kPix, kBlocksPerCta);
-  fused_p_decode_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
+  DecodeTables t;
+  const float* tabs = static_cast<const float*>(tabs_host);
+  for (int i = 0; i < kPix; ++i) {
+    t.d[i] = tabs[i];
+    t.q[0][i] = tabs[kPix + i];
+    t.q[1][i] = tabs[2 * kPix + i];
+  }
+  dim3 grid((W / kBs + kStrip - 1) / kStrip, H / kBs, G * F);
+  fused_p_decode_kernel<<<grid, kStrip * kBs, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int32_t*>(mv), static_cast<const uint8_t*>(refs),
-      static_cast<const int16_t*>(coeffs), static_cast<const float*>(tabs),
-      static_cast<uint8_t*>(out), F, H, W);
+      static_cast<const int16_t*>(coeffs), t, static_cast<uint8_t*>(out), F, H, W);
   return static_cast<int>(cudaGetLastError());
 }

@@ -37,6 +37,8 @@
 // plane, and the stores of its outputs: the threads of a warp sit in
 // different block rows, so every store of a warp goes to 32 lines.
 //
+// K6 has a note of its own before its kernels.
+//
 // Design, both kernels: one CTA per plane and one thread per block row (a
 // thread loops over rows when a plane has more rows than the CTA threads);
 // at step t the thread of row bi codes block (bi, t - 2 bi), then the CTA
@@ -49,7 +51,8 @@
 // block, from about 1 400) and to take device memory off the step:
 //   * pixels travel four to a 32-bit word: the original block is four words,
 //     the carry one word per ring slot and one for the left column (5 words
-//     a block row, K6 keeps 20 ints), recon rows are stored as words;
+//     a block row; K6's unclipped form keeps 20 ints), recon rows are stored
+//     as words;
 //   * the nine predictors are formed as scalars once (every value lies in
 //     0..255) and packed into rows, shared sub-expressions between the modes
 //     computed once, diagonal modes cut out of a packed sequence with
@@ -80,7 +83,7 @@ namespace {
 
 constexpr int kFill = 128;
 constexpr int kSentinelKey = 16 * 255 * 16;
-constexpr int kRowInts = 20;     // K6: shared ints per block row, ring 4 x 4 and left column 4
+constexpr int kRowInts = 20;     // K6, int form: shared ints per block row, ring 4 x 4 and left column 4
 constexpr int kEncRowWords = 5;  // K5: packed words per block row, ring 4 and left column 1
 constexpr int kEncThreads = 320; // K5: most threads of a CTA; a thread may hold 204 registers
 constexpr int kFlushWarps = 2;   // K5: warps of a CTA that write the staged outputs out
@@ -599,11 +602,116 @@ __global__ void __launch_bounds__(kEncThreads) intra_encode_kernel(
   }
 }
 
-// grid (N), block (threads), dynamic shared memory nbh * kRowInts ints.
-// out is uint8 when clip, int32 otherwise.
-__global__ void intra_decode_kernel(const int16_t* __restrict__ res, const int8_t* __restrict__ modes,
-                                    const uint8_t* __restrict__ escape, void* __restrict__ out,
-                                    int H, int W, int qstep, int clip) {
+// ---- K6: the decode ------------------------------------------------------
+//
+// Like K5 it is bound by the chain of dependent diagonals, so what counts is
+// what a step costs. Its first version had device memory on the chain (a
+// block's residual, mode and escape were loaded in the step that used them),
+// ran dequant_inv there although it depends on nothing the chain computes,
+// predicted through a switch that a warp of 32 block rows walks branch by
+// branch, kept 20 ints of carry a block row and stored four times a block to
+// 32 lines a warp.
+//
+// The clipped form (uint8 out, the lossy decode), up to kDecRowWarps * 32
+// block rows, so that a 1080-row plane takes it:
+//   * the residual leaves the chain altogether: intra_residual_kernel, one
+//     thread a block over all SMs, runs dequant_inv ahead of the chain and
+//     leaves the residual as int16, clamped to [-255, 255], which changes no
+//     output: clip(p + r) == clip(p + clamp(r)) for a prediction p in 0..255.
+//     With qstep == 0 the stored residual is taken as it is and clamped by
+//     the row thread;
+//   * the row thread loads its next block's residual, mode and escape a step
+//     ahead, so no step waits for device memory;
+//   * the reconstruction is a byte, so the carry is K5's five packed words a
+//     block row and the prediction is K5's predict_all, all nine modes as
+//     packed rows without a branch, and four selects a mode;
+//   * prediction plus residual, clipped, is one __viaddmin_s16x2_relu for two
+//     pixels;
+//   * a row thread stores nothing to device memory: it leaves its four words
+//     in shared memory, kGroup blocks to a group, and kFlushWarps more warps
+//     write each finished group out, 32 contiguous bytes a pixel row, on the
+//     schedule of K5's flush.
+// What is left on the chain is about 300 instructions a block, a third of
+// K5's; with two row warps on two of the SM's four schedulers the step is
+// bound by their issue. A switch on the mode over packed rows, instead of
+// predict_all and the select, measured 1.7 times slower: the 32 block rows
+// of a warp hold all nine modes and walk every branch.
+// The unclipped form (int32 out: the lossless decode, whose output the
+// caller may not want clipped) reconstructs values that can leave 0..255
+// when the stream is not one the encoder wrote, and the predictors' wraps
+// then see them, so it keeps the int carry and predict(); it gains only the
+// loads a step ahead. Planes with more block rows than a form has threads
+// loop over their rows with direct loads and stores, as before.
+
+constexpr int kDecRowWarps = 9;   // K6, clipped form: most warps of row threads (288 block rows)
+constexpr int kDecThreads = 32 * (kDecRowWarps + kFlushWarps);
+constexpr int kDecStageWords = 2 * 4 * kGroup + 1;  // two groups of recon words a block row; odd
+
+// A block's operands as they come from device memory, loaded a step ahead
+// and looked at only in the step that uses them: a step that touched them
+// earlier would wait for the load.
+struct Ahead {
+  uint2 r[4];     // the residual rows, two pixels a word
+  int8_t mode;
+  uint8_t esc;
+  __device__ __forceinline__ void load(const int16_t* __restrict__ res_at,
+                                       const int8_t* __restrict__ mode_at,
+                                       const uint8_t* __restrict__ esc_at, int W) {
+#pragma unroll
+    for (int rr = 0; rr < 4; ++rr)
+      r[rr] = *reinterpret_cast<const uint2*>(res_at + static_cast<size_t>(rr) * W);
+    mode = *mode_at;
+    esc = *esc_at;
+  }
+};
+
+// One block of the int form: r = the residual as stored, mode < 0 for an escape.
+__device__ __forceinline__ void decode_block_int(int r[16], int mode, int* ring, int* left, int bi,
+                                                 int bj, int t, int nbw, int W, int qstep, int clip,
+                                                 void* __restrict__ out, size_t px) {
+  if (qstep) dequant_inv(r, qstep);
+  Neighbors n;
+  load_neighbors(ring, left, bi, bj, t, nbw, n);
+  int p[16];
+  predict(mode, n, p);
+  int rec[16];
+#pragma unroll
+  for (int i = 0; i < 16; ++i) {
+    rec[i] = p[i] + r[i];
+    if (clip) rec[i] = min(max(rec[i], 0), 255);
+  }
+#pragma unroll
+  for (int rr = 0; rr < 4; ++rr) {
+    const size_t at = px + static_cast<size_t>(rr) * W;
+    if (clip)
+      *reinterpret_cast<uchar4*>(static_cast<uint8_t*>(out) + at) =
+          make_uchar4(static_cast<unsigned char>(rec[4 * rr]), static_cast<unsigned char>(rec[4 * rr + 1]),
+                      static_cast<unsigned char>(rec[4 * rr + 2]), static_cast<unsigned char>(rec[4 * rr + 3]));
+    else
+      *reinterpret_cast<int4*>(static_cast<int32_t*>(out) + at) =
+          make_int4(rec[4 * rr], rec[4 * rr + 1], rec[4 * rr + 2], rec[4 * rr + 3]);
+  }
+  store_carry(ring, left, bi, t, rec);
+}
+
+__device__ __forceinline__ void unpack_rows(const uint2 w[4], int r[16]) {
+#pragma unroll
+  for (int rr = 0; rr < 4; ++rr) {
+    r[4 * rr] = static_cast<int16_t>(w[rr].x & 0xffffu);
+    r[4 * rr + 1] = static_cast<int>(w[rr].x) >> 16;
+    r[4 * rr + 2] = static_cast<int16_t>(w[rr].y & 0xffffu);
+    r[4 * rr + 3] = static_cast<int>(w[rr].y) >> 16;
+  }
+}
+
+// The int form. grid (N), dynamic shared memory nbh * kRowInts ints; out is
+// uint8 when clip, int32 otherwise. kAhead: block = at least nbh threads, a
+// thread per block row, its next block's operands loaded a step ahead;
+// otherwise any block, each thread loops over block rows.
+template <bool kAhead>
+__global__ void intra_decode_int_kernel(const int16_t* __restrict__ res, const int8_t* __restrict__ modes,
+                                        const uint8_t* __restrict__ escape, void* __restrict__ out,
+                                        int H, int W, int qstep, int clip) {
   extern __shared__ int carry[];
   const int nbh = H / 4, nbw = W / 4;
   int* ring = carry;
@@ -613,43 +721,212 @@ __global__ void intra_decode_kernel(const int16_t* __restrict__ res, const int8_
   const size_t bbase = static_cast<size_t>(blockIdx.x) * nbh * nbw;
   const int steps = 2 * (nbh - 1) + nbw;
 
-  for (int t = 0; t < steps; ++t) {
-    for (int bi = threadIdx.x; bi < nbh; bi += blockDim.x) {
+  if constexpr (kAhead) {
+    // operands loaded a step ahead into two sets that take turns, as in
+    // intra_decode_kernel
+    const int bi = threadIdx.x;
+    const bool active = bi < nbh;
+    const size_t row_px = base + static_cast<size_t>(4 * bi) * W;
+    const int16_t* res_at = res + row_px;
+    const int8_t* mode_at = modes + bbase + static_cast<size_t>(bi) * nbw;
+    const uint8_t* esc_at = escape + bbase + static_cast<size_t>(bi) * nbw;
+    Ahead even = {}, odd = {};
+    if (active) even.load(res_at, mode_at, esc_at, W);
+    auto step = [&](int t, const Ahead& cur, Ahead& nxt) {
       const int bj = t - 2 * bi;
-      if (bj < 0 || bj >= nbw) continue;
-      const size_t px = base + static_cast<size_t>(4 * bi) * W + 4 * bj;
-      int r[16];
-#pragma unroll
-      for (int rr = 0; rr < 4; ++rr) {
-        const short4 v = *reinterpret_cast<const short4*>(res + px + static_cast<size_t>(rr) * W);
-        r[4 * rr] = v.x; r[4 * rr + 1] = v.y; r[4 * rr + 2] = v.z; r[4 * rr + 3] = v.w;
+      if (active && bj >= 0 && bj < nbw) {
+        if (bj + 1 < nbw) {
+          res_at += 4;
+          ++mode_at;
+          ++esc_at;
+          nxt.load(res_at, mode_at, esc_at, W);
+        }
+        int r[16];
+        unpack_rows(cur.r, r);
+        decode_block_int(r, cur.esc ? -1 : static_cast<int>(cur.mode), ring, left, bi, bj, t, nbw,
+                         W, qstep, clip, out, row_px + 4 * bj);
       }
-      if (qstep) dequant_inv(r, qstep);
-      const size_t b = bbase + static_cast<size_t>(bi) * nbw + bj;
-      Neighbors n;
-      load_neighbors(ring, left, bi, bj, t, nbw, n);
-      int p[16];
-      predict(escape[b] ? -1 : static_cast<int>(modes[b]), n, p);
-      int rec[16];
+      __syncthreads();
+    };
+    for (int t = 0; t < steps; t += 2) {
+      step(t, even, odd);
+      if (t + 1 < steps) step(t + 1, odd, even);
+    }
+  } else {
+    for (int t = 0; t < steps; ++t) {
+      for (int bi = threadIdx.x; bi < nbh; bi += blockDim.x) {
+        const int bj = t - 2 * bi;
+        if (bj < 0 || bj >= nbw) continue;
+        const size_t px = base + static_cast<size_t>(4 * bi) * W + 4 * bj;
+        uint2 w[4];
 #pragma unroll
-      for (int i = 0; i < 16; ++i) {
-        rec[i] = p[i] + r[i];
-        if (clip) rec[i] = min(max(rec[i], 0), 255);
+        for (int rr = 0; rr < 4; ++rr)
+          w[rr] = *reinterpret_cast<const uint2*>(res + px + static_cast<size_t>(rr) * W);
+        int r[16];
+        unpack_rows(w, r);
+        const size_t b = bbase + static_cast<size_t>(bi) * nbw + bj;
+        decode_block_int(r, escape[b] ? -1 : static_cast<int>(modes[b]), ring, left, bi, bj, t,
+                         nbw, W, qstep, clip, out, px);
       }
+      __syncthreads();
+    }
+  }
+}
+
+// The residual of every block ahead of the chain: res holds quantized
+// coefficients, out gets dequant_inv of them clamped to [-255, 255], in the
+// same block layout. One thread a block, consecutive threads on consecutive
+// blocks of a block row, so a warp reads and writes 256 contiguous bytes an
+// instruction.
+__global__ void intra_residual_kernel(const int16_t* __restrict__ res, int16_t* __restrict__ out,
+                                      size_t blocks, int nbh, int nbw, int W, int qstep) {
+  const size_t per_plane = static_cast<size_t>(nbh) * nbw;
+  for (size_t i = blockIdx.x * static_cast<size_t>(blockDim.x) + threadIdx.x; i < blocks;
+       i += static_cast<size_t>(gridDim.x) * blockDim.x) {
+    const size_t n = i / per_plane, in_plane = i % per_plane;
+    const int bi = static_cast<int>(in_plane / nbw), bj = static_cast<int>(in_plane % nbw);
+    const size_t px = (n * nbh * 4 + static_cast<size_t>(4 * bi)) * W + 4 * bj;
+    uint2 w[4];
 #pragma unroll
-      for (int rr = 0; rr < 4; ++rr) {
-        const size_t at = px + static_cast<size_t>(rr) * W;
-        if (clip)
-          *reinterpret_cast<uchar4*>(static_cast<uint8_t*>(out) + at) =
-              make_uchar4(static_cast<unsigned char>(rec[4 * rr]), static_cast<unsigned char>(rec[4 * rr + 1]),
-                          static_cast<unsigned char>(rec[4 * rr + 2]), static_cast<unsigned char>(rec[4 * rr + 3]));
-        else
-          *reinterpret_cast<int4*>(static_cast<int32_t*>(out) + at) =
-              make_int4(rec[4 * rr], rec[4 * rr + 1], rec[4 * rr + 2], rec[4 * rr + 3]);
+    for (int rr = 0; rr < 4; ++rr)
+      w[rr] = *reinterpret_cast<const uint2*>(res + px + static_cast<size_t>(rr) * W);
+    int r[16];
+    unpack_rows(w, r);
+    dequant_inv(r, qstep);
+#pragma unroll
+    for (int k = 0; k < 16; ++k) r[k] = min(max(r[k], -255), 255);
+#pragma unroll
+    for (int rr = 0; rr < 4; ++rr)
+      *reinterpret_cast<uint2*>(out + px + static_cast<size_t>(rr) * W) =
+          make_uint2(pk16(r[4 * rr], r[4 * rr + 1]), pk16(r[4 * rr + 2], r[4 * rr + 3]));
+  }
+}
+
+// One block of the clipped form: r = the residual rows, two pixels a word as
+// int16 (clamped here when clamp_res), mode < 0 or > 8 predicts zero.
+// Neighbours and carry as in encode_block. Returns the packed recon rows.
+template <bool kClampRes>
+__device__ __forceinline__ void decode_block_packed(const uint2 r[4], int mode, uint32_t* ring,
+                                                    uint32_t* left, int bi, int bj, int t, int nbw,
+                                                    uint32_t rec[4]) {
+  const bool a_u = bi >= 1, a_l = bj >= 1, a_ur = a_u && bj < nbw - 1;
+  const uint32_t* up = ring + (a_u ? bi - 1 : 0) * 4;
+  const uint32_t U = a_u ? up[(t - 2) & 3] : rep4(kFill);
+  const uint32_t L = a_l ? left[bi] : rep4(kFill);
+  const uint32_t UR = a_ur ? up[(t - 1) & 3] : rep4(byte_of(U, 3));
+  const int ul = (a_u && a_l) ? byte_of(up[(t - 3) & 3], 3) : kFill;
+
+  uint32_t p[9][4];
+  predict_all(U, L, UR, ul, a_u, a_l, a_ur, p);
+  constexpr uint32_t kLo = 0x00ff00ffu;   // 255 in both halves
+  constexpr uint32_t kNeg = 0xff01ff01u;  // -255 in both halves
+#pragma unroll
+  for (int rr = 0; rr < 4; ++rr) {
+    uint32_t sel = 0u;
+#pragma unroll
+    for (int m = 0; m < 9; ++m) sel = mode == m ? p[m][rr] : sel;
+    uint32_t ra = r[rr].x, rb = r[rr].y;
+    if (kClampRes) {
+      ra = __vmaxs2(__vmins2(ra, kLo), kNeg);
+      rb = __vmaxs2(__vmins2(rb, kLo), kNeg);
+    }
+    // pixels 0, 1 and 2, 3 as halves; add, min with 255, max with 0; back to bytes
+    const uint32_t lo = __viaddmin_s16x2_relu(__byte_perm(sel, 0u, 0x4140), ra, kLo);
+    const uint32_t hi = __viaddmin_s16x2_relu(__byte_perm(sel, 0u, 0x4342), rb, kLo);
+    rec[rr] = __byte_perm(lo, hi, 0x6420);
+  }
+  ring[bi * 4 + (t & 3)] = rec[3];
+  left[bi] = pk(byte_of(rec[0], 3), byte_of(rec[1], 3), byte_of(rec[2], 3), byte_of(rec[3], 3));
+}
+
+// One warp writes the staged recon of n blocks of a group out: 4 n bytes a
+// pixel row, side by side.
+__device__ __forceinline__ void flush_recon(const uint32_t* tile, int n, int lane, int W,
+                                            uint8_t* __restrict__ recon_px) {
+  if ((lane & 7) < n)
+    *reinterpret_cast<uint32_t*>(recon_px + static_cast<size_t>(lane >> 3) * W + 4 * (lane & 7)) = tile[lane];
+}
+
+// The clipped form. grid (N), block = (row_warps + kFlushWarps) warps, nbh <=
+// 32 * row_warps; dynamic shared memory nbh * (kEncRowWords + kDecStageWords)
+// words. res: the residual, two bytes a pixel in block layout (from
+// intra_residual_kernel, or the stream's own when kClampRes).
+template <bool kClampRes>
+__global__ void __launch_bounds__(kDecThreads) intra_decode_kernel(
+    const int16_t* __restrict__ res, const int8_t* __restrict__ modes,
+    const uint8_t* __restrict__ escape, uint8_t* __restrict__ out, int H, int W, int row_warps) {
+  extern __shared__ int carry[];
+  const int nbh = H / 4, nbw = W / 4;
+  uint32_t* ring = reinterpret_cast<uint32_t*>(carry);
+  uint32_t* left = ring + nbh * 4;
+  uint32_t* stage = left + nbh;
+  const size_t plane = static_cast<size_t>(H) * W;
+  const size_t base = blockIdx.x * plane;
+  const size_t bbase = static_cast<size_t>(blockIdx.x) * nbh * nbw;
+  const int steps = 2 * (nbh - 1) + nbw;
+
+  const int bi = threadIdx.x;
+  const int lane = bi & 31, flusher = (bi >> 5) - row_warps;
+  const bool active = bi < nbh;
+  // the operands of the row's next block, and where they come from
+  const int16_t* res_at = res + base + static_cast<size_t>(4 * bi) * W;
+  const int8_t* mode_at = modes + bbase + static_cast<size_t>(bi) * nbw;
+  const uint8_t* esc_at = escape + bbase + static_cast<size_t>(bi) * nbw;
+  Ahead even = {}, odd = {};
+  if (active) even.load(res_at, mode_at, esc_at, W);
+
+  // One step. A thread's blocks follow each other step by step from the even
+  // step 2 bi on, so the block of an even step finds its operands in `even`
+  // and loads the next block's into `odd`, and the other way round: the two
+  // sets take turns and no register is copied.
+  auto step = [&](int t, const Ahead& cur, Ahead& nxt) {
+    const int bj = t - 2 * bi;
+    if (active && bj >= 0 && bj < nbw) {
+      if (bj + 1 < nbw) {
+        res_at += 4;
+        ++mode_at;
+        ++esc_at;
+        nxt.load(res_at, mode_at, esc_at, W);
       }
-      store_carry(ring, left, bi, t, rec);
+      uint32_t rec[4];
+      decode_block_packed<kClampRes>(cur.r, cur.esc ? -1 : static_cast<int>(cur.mode), ring, left,
+                                     bi, bj, t, nbw, rec);
+      uint32_t* tile = stage + bi * kDecStageWords + ((bj / kGroup) & 1) * 4 * kGroup;
+#pragma unroll
+      for (int rr = 0; rr < 4; ++rr) tile[rr * kGroup + bj % kGroup] = rec[rr];
+    }
+    if (flusher >= 0) {
+      // K5's schedule: a full group ends with block 8 j + 7, coded in an odd
+      // step s by row (s - 7) / 2 - 4 j, and its row starts to overwrite it
+      // eight steps later; the groups of step s are written out over the two
+      // steps that follow, a quarter by each flush warp in each.
+      const int tp = t - 1;
+      const int s = (tp & 1) ? tp : tp - 1;
+      if (s >= kGroup - 1) {
+        const int top = (s - (kGroup - 1)) / 2;
+        const int j_lo = top >= nbh ? (top - nbh + 4) / 4 : 0;
+        const int j_hi = min(top / 4, nbw / kGroup - 1);
+        for (int j = j_lo + 2 * (tp - s) + flusher; j <= j_hi; j += 2 * kFlushWarps) {
+          const int row = top - 4 * j;
+          flush_recon(stage + row * kDecStageWords + (j & 1) * 4 * kGroup, kGroup, lane, W,
+                      out + base + static_cast<size_t>(4 * row) * W + 4 * kGroup * j);
+        }
+      }
+      // the shorter group that ends a row, coded in step tp
+      const int twice = tp - (nbw - 1);
+      if (flusher == 0 && nbw % kGroup && twice >= 0 && !(twice & 1) && twice / 2 < nbh) {
+        const int row = twice / 2, j = nbw / kGroup;
+        flush_recon(stage + row * kDecStageWords + (j & 1) * 4 * kGroup, nbw % kGroup, lane, W,
+                    out + base + static_cast<size_t>(4 * row) * W + 4 * kGroup * j);
+      }
     }
     __syncthreads();
+  };
+  // two more steps than the chain has: the flush runs up to two behind
+  const int total = steps + 2;
+  for (int t = 0; t < total; t += 2) {
+    step(t, even, odd);
+    if (t + 1 < total) step(t + 1, odd, even);
   }
 }
 
@@ -687,14 +964,53 @@ extern "C" int vcs_intra_encode(const void* planes, void* qcoef, void* modes, vo
   return static_cast<int>(cudaGetLastError());
 }
 
+// scratch: int16 [N, H, W] for the residual, needed (and written) when clip
+// and qstep > 0 and the plane has at most 32 * kDecRowWarps block rows; may be
+// null otherwise. res and scratch must start on 8-byte boundaries.
 extern "C" int vcs_intra_decode(const void* res, const void* modes, const void* escape, void* out,
-                                int N, int H, int W, int qstep, int clip, void* stream) {
-  const int nbh = H / 4;
+                                void* scratch, int N, int H, int W, int qstep, int clip,
+                                void* stream) {
+  const int nbh = H / 4, nbw = W / 4;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int16_t* r = static_cast<const int16_t*>(res);
+  const int8_t* m = static_cast<const int8_t*>(modes);
+  const uint8_t* e = static_cast<const uint8_t*>(escape);
+  const int row_warps = (nbh + 31) / 32;
+  if (clip && row_warps <= kDecRowWarps) {
+    if (qstep) {
+      if (!scratch) return static_cast<int>(cudaErrorInvalidValue);
+      const size_t blocks = static_cast<size_t>(N) * nbh * nbw;
+      const size_t want = (blocks + 255) / 256;
+      intra_residual_kernel<<<static_cast<unsigned>(want < 65536 ? want : 65536), 256, 0, st>>>(
+          r, static_cast<int16_t*>(scratch), blocks, nbh, nbw, W, qstep);
+      cudaError_t err = cudaGetLastError();
+      if (err != cudaSuccess) return static_cast<int>(err);
+      r = static_cast<const int16_t*>(scratch);
+    }
+    const size_t smem = static_cast<size_t>(nbh) * sizeof(uint32_t) * (kEncRowWords + kDecStageWords);
+    const int threads = 32 * (row_warps + kFlushWarps);
+    if (qstep) {
+      cudaError_t err = prepare(intra_decode_kernel<false>, smem);
+      if (err != cudaSuccess) return static_cast<int>(err);
+      intra_decode_kernel<false><<<N, threads, smem, st>>>(r, m, e, static_cast<uint8_t*>(out), H, W,
+                                                           row_warps);
+    } else {
+      cudaError_t err = prepare(intra_decode_kernel<true>, smem);
+      if (err != cudaSuccess) return static_cast<int>(err);
+      intra_decode_kernel<true><<<N, threads, smem, st>>>(r, m, e, static_cast<uint8_t*>(out), H, W,
+                                                          row_warps);
+    }
+    return static_cast<int>(cudaGetLastError());
+  }
   const size_t smem = static_cast<size_t>(nbh) * kRowInts * sizeof(int);
-  cudaError_t err = prepare(intra_decode_kernel, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  intra_decode_kernel<<<N, threads_for(nbh), smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int16_t*>(res), static_cast<const int8_t*>(modes),
-      static_cast<const uint8_t*>(escape), out, H, W, qstep, clip);
+  if (nbh <= 1024) {
+    cudaError_t err = prepare(intra_decode_int_kernel<true>, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    intra_decode_int_kernel<true><<<N, threads_for(nbh), smem, st>>>(r, m, e, out, H, W, qstep, clip);
+  } else {
+    cudaError_t err = prepare(intra_decode_int_kernel<false>, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    intra_decode_int_kernel<false><<<N, 1024, smem, st>>>(r, m, e, out, H, W, qstep, clip);
+  }
   return static_cast<int>(cudaGetLastError());
 }

@@ -26,10 +26,11 @@ from vcs_h264_tpu_torch.ops.motion import check_backend
 
 
 class Decoder:
-    """Decode an EncodedVideo on `device` ("cuda" by default). `backend` as
-    for the Encoder."""
+    """Decode an EncodedVideo on `device` ("cuda" by default). `gop_batch`
+    is positional as in the JAX package; `device` and `backend` (as for the
+    Encoder) are keyword-only."""
 
-    def __init__(self, device="cuda", gop_batch: int = 8,
+    def __init__(self, gop_batch: int = 8, *, device="cuda",
                  backend: str = "auto"):
         if gop_batch < 1:
             raise ValueError("gop_batch must be >= 1")

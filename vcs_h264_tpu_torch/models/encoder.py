@@ -59,13 +59,15 @@ def group_into_gops(frames: Sequence[np.ndarray], gop_len: int
 
 
 class Encoder:
-    """Encode BGR uint8 frames on `device` ("cuda" by default).
+    """Encode BGR uint8 frames on `device` ("cuda" by default). `cfg` and
+    `gop_batch` are the JAX package's positional parameters, in its order;
+    `device` and `backend` are the port's own and keyword-only.
 
     backend: "auto" (CUDA kernels on a GPU, plain PyTorch on the CPU) or
     "plain" (the plain PyTorch versions on any device)."""
 
-    def __init__(self, cfg: CodecConfig, device="cuda", gop_batch: int = 8,
-                 backend: str = "auto"):
+    def __init__(self, cfg: CodecConfig = CodecConfig(), gop_batch: int = 8,
+                 *, device="cuda", backend: str = "auto"):
         check_supported(cfg)
         if gop_batch < 1:
             raise ValueError("gop_batch must be >= 1")

@@ -23,6 +23,7 @@ of the chroma planes (`gop{g}_iqc` [2, H/2, W/2], `_imc`, `_iec`
 
 from __future__ import annotations
 
+import ast
 import dataclasses
 import json
 from typing import List, Optional, Sequence, Union
@@ -242,7 +243,12 @@ class EncodedVideo:
         """Load a stream written by either package; tensors land on the
         CPU. Raises NotImplementedError for a mode the port does not code."""
         with np.load(path, allow_pickle=False) as data:
-            meta = json.loads(str(data["_meta"][0]))
+            raw_meta = str(data["_meta"][0])
+            try:
+                meta = json.loads(raw_meta)
+            except json.JSONDecodeError:
+                # the JAX package's first streams stored the repr of the dict
+                meta = ast.literal_eval(raw_meta)
             cfg = CodecConfig(
                 block_size=int(meta["block_size"]),
                 gop_pattern=tuple(meta["gop_pattern"].split(",")),

@@ -42,7 +42,8 @@ SIGNATURES = {
     "vcs_sad_search": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),
     # mv, refs, curs, tables, coeffs_out, G, F, H, W, stream
     "vcs_fused_p_encode": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
-    # mv, refs, coeffs, tables, frames_out, G, F, H, W, stream
+    # mv, refs, coeffs, tables (in HOST memory: they become the kernel's
+    # parameter), frames_out, G, F, H, W, stream
     "vcs_fused_p_decode": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     # the bare-plane pairs, luma (C = 1) and 4:2:0 chroma (C = 2): as the
     # two above, H and W being the plane's own
@@ -54,8 +55,9 @@ SIGNATURES = {
     # magic, shift (intra_cuda.quant_magic), stream
     "vcs_intra_encode": (_P, _P, _P, _P, _P, _I, _I, _I, _I, ctypes.c_uint, _I,
                          _P),
-    # res, modes, escape, out, N, H, W, qstep, clip, stream
-    "vcs_intra_decode": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # res, modes, escape, out, scratch (int16 like res, or null: see the
+    # source), N, H, W, qstep, clip, stream
+    "vcs_intra_decode": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     # mv, refs, out, G, F, C, H, W, bs, stream
     "vcs_compensate": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
 }

@@ -140,14 +140,20 @@ def decode_c420_frames_plain(mv_c, c_refs, coeffs, qf: float) -> torch.Tensor:
 
 
 @functools.lru_cache(maxsize=None)
-def _tables(qf: float, device: torch.device) -> torch.Tensor:
-    """[D, QY, QC] float32, 192 values on the device: the kernels' constant
-    operands, uploaded once per quality factor."""
+def _tables_np(qf: float) -> np.ndarray:
+    """[D, QY, QC] float32, 192 values in host memory (cached: K4 takes
+    them from there as its kernel's parameter, so the array must live)."""
     qy, qc = quant_tables_np(qf)
-    tabs = np.concatenate([dct_matrix_np(BS).astype(np.float32).ravel(),
+    return np.concatenate([dct_matrix_np(BS).astype(np.float32).ravel(),
                            qy.astype(np.float32).ravel(),
                            qc.astype(np.float32).ravel()])
-    return torch.from_numpy(tabs).to(device)
+
+
+@functools.lru_cache(maxsize=None)
+def _tables(qf: float, device: torch.device) -> torch.Tensor:
+    """The same 192 values on the device: the other kernels' constant
+    operands, uploaded once per quality factor."""
+    return torch.from_numpy(_tables_np(qf)).to(device)
 
 
 def _check_operands(name, mv, refs, data, data_dtype, c: int, mvbs: int):
@@ -177,14 +183,28 @@ def _check_operands(name, mv, refs, data, data_dtype, c: int, mvbs: int):
         raise ValueError(f"{name}: grid too large for {tuple(data.shape)}")
 
 
+def _check_aligned(name: str, arg: str, t: torch.Tensor, align: int) -> None:
+    if t.data_ptr() % align:
+        raise ValueError(f"{name}: {arg} must start on a {align}-byte "
+                         "boundary")
+
+
 def _launch(entry: str, counter: str, mv, refs, data, qf, out):
     lib = _build.load_library()
-    tabs = _tables(float(qf), data.device)
+    if counter == "fused_p_decode":
+        # 16-byte coefficient loads, 8-byte stores, reference rows cut out
+        # of aligned 4-byte words
+        for arg, t, align in (("coeffs", data, 16), ("refs", refs, 4),
+                              ("out", out, 8)):
+            _check_aligned(counter, arg, t, align)
+        tabs_ptr = _tables_np(float(qf)).ctypes.data
+    else:
+        tabs_ptr = _tables(float(qf), data.device).data_ptr()
     g, f, _, h, w = data.shape
     with torch.cuda.device(data.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = getattr(lib, entry)(mv.data_ptr(), refs.data_ptr(),
-                                  data.data_ptr(), tabs.data_ptr(),
+                                  data.data_ptr(), tabs_ptr,
                                   out.data_ptr(), g, f, h, w, stream)
     _build.check(err, counter)
     LAUNCHES[counter] += 1

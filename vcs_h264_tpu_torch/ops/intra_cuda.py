@@ -17,7 +17,10 @@ from vcs_h264_tpu_torch.ops import _build
 LAUNCHES = {"intra_encode": 0, "intra_decode": 0}
 
 _SHMEM_MAX = 232448           # dynamic shared memory a block may opt into
-_SHMEM_PER_ROW = 20 * 4       # the carry of one block row, in bytes
+_SHMEM_PER_ROW = 20 * 4       # the carry of one block row, in bytes (the
+                              # int form, which the tallest planes take)
+FAST_DECODE_ROWS = 9 * 32     # block rows up to which the clipped decode
+                              # takes its fast form (kDecRowWarps warps)
 
 
 def _check(name: str, arg: str, t: torch.Tensor, dtype, ndim: int,
@@ -117,12 +120,16 @@ def intra_decode(res: torch.Tensor, modes: torch.Tensor, escape: torch.Tensor,
         raise ValueError(f"{name}: operands on different devices")
     out = torch.empty((n, h, w), dtype=torch.uint8 if clip else torch.int32,
                       device=res.device)
+    # the fast form dequantises every block ahead of the chain, into scratch
+    scratch = (torch.empty_like(res)
+               if clip and qstep and h // 4 <= FAST_DECODE_ROWS else None)
     lib = _build.load_library()
     with torch.cuda.device(res.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.vcs_intra_decode(res.data_ptr(), modes.data_ptr(),
-                                   escape.data_ptr(), out.data_ptr(), n, h, w,
-                                   qstep, int(bool(clip)), stream)
+        err = lib.vcs_intra_decode(
+            res.data_ptr(), modes.data_ptr(), escape.data_ptr(),
+            out.data_ptr(), None if scratch is None else scratch.data_ptr(),
+            n, h, w, qstep, int(bool(clip)), stream)
     _build.check(err, name)
     LAUNCHES[name] += 1
     return out
