@@ -4,11 +4,12 @@
     python3 chip_smoke.py [--seed N]
     python3 chip_smoke.py --profile     # device time by kernel, per path
     python3 chip_smoke.py --earlier DIR # also build an earlier version of
-                                        # K2, K4, K5 and K6 (DIR holds its
-                                        # motion_sad.cu, intra_wavefront.cu,
-                                        # inter_fused.cu + block_origin.cuh,
-                                        # or some of them), hold today's
-                                        # kernels identical to it, time it
+                                        # K1 to K6 (DIR holds its
+                                        # motion_comp.cu, motion_sad.cu,
+                                        # intra_wavefront.cu, inter_fused.cu
+                                        # + their .cuh headers, or some of
+                                        # them), hold today's kernels
+                                        # identical to it, time it
 
 Run from the root of a checkout: it builds the CUDA kernels from
 `vcs_h264_tpu_torch/csrc/` with nvcc and imports nothing of JAX or of the JAX
@@ -27,7 +28,11 @@ package. Phases, each of which exits nonzero on failure:
         identical; and K4 alone where its strips of 16 blocks, 16-byte loads
         and shifted reference words can go wrong (`fused_decode_edge_phase`:
         widths 8 to 264, one block row, one P-frame, vectors far outside and
-        at the int32 extremes, coefficients at +-32767), same bound;
+        at the int32 extremes, coefficients at +-32767), same bound; and K3
+        alone at the same shapes and vectors (`fused_encode_edge_phase`: random
+        frames and frames of 0 and 255 only, whose residuals are +-255 on
+        every channel; quality factors 50, 1 and 99, whose tables hold 255
+        and 1), same bound;
      b. K5/K6 at small edge shapes (one 4x4 block, one or two block rows
         and columns, a ragged plane, a plane built to escape, a plane with
         more block rows than a CTA has threads; qsteps 1 to 65535): every
@@ -45,13 +50,18 @@ package. Phases, each of which exits nonzero on failure:
         lossless on the plain lossless codec's residuals identical to the
         source planes; then K5/K6 on 3 planes of 1920x1080, identical to
         the plain versions, timed once (no path below runs that size);
-     e. K1 at edge shapes: bs 2, 4, 6, 8 and 16, C 1 and 3, one block row,
-        widths that are not multiples of 32 or of 4, a row longer than a
+     e. K1 at edge shapes, both of its forms: bs 2, 4, 6, 8 and 16, C 1, 2
+        and 3, one block row, widths that are not multiples of 32 or of 4
+        and widths of 16, 48 and 1296 (the fast form), a row longer than a
         CTA's segment, vectors whose source origins fall before, after and
-        far outside every edge: identical to the plain gather;
+        far outside every edge, at every byte shift next to the last column
+        and at the int32 extremes; the fast form's shapes again with refs
+        one to three bytes off a word boundary and out off a 16-byte
+        boundary (the general form): identical to the plain gather;
      f. K1 at the main shapes: the clip's 8 GOPs of 3 P-frames at 1280x720
         on the searched vectors, and the B shape (4 GOPs x 3 B-frames, one
-        frame each): identical;
+        frame each): identical; timed there, at bs 4 on the 2x360x640 chroma
+        planes of the 4:2:0 B path and at bs 16;
      g. the bare-plane kernels (the C = 1 case of K3/K4 on a luma plane,
         motion cells of 8 px; K7 on two chroma planes, cells of 4 px) at
         edge shapes: planes of 8x8, one strip row, widths that are not
@@ -105,13 +115,17 @@ package. Phases, each of which exits nonzero on failure:
 
 K2 has two kernels, chosen by shape in its C entry point: the word kernel
 (block sizes 4, 8, 16 on 4-byte boundaries; all main shapes) and the byte
-kernel (everything else). The `sad_search` entry's "earlier_ms" is the byte
-kernel at the main shape, reached through operands one byte off a word
-boundary; with --earlier it is the earlier build's time, as are those of
-`intra_encode`, `intra_decode` and `fused_p_decode` (null without). The
-four entries carry "redesigned": true, the kernels rebuilt since their
-first version; under --earlier each of them, at every main shape and (K4,
-K6) every edge shape, is first held identical to the earlier build.
+kernel (everything else). K1 has two forms, chosen by its wrapper: the fast
+form (block sizes 4, 8, 16, rows of a multiple of 16 bytes, aligned
+operands; all main shapes) and the general form. The `sad_search` entry's
+"earlier_ms" is the byte kernel at the main shape, reached through operands
+one byte off a word boundary, and the `compensate` entry's is the general
+form there, asked for by `form=`; with --earlier they are the earlier
+build's times, as are those of `intra_encode`, `intra_decode`,
+`fused_p_encode` and `fused_p_decode` (null without). The six entries carry
+"redesigned": true, the kernels rebuilt since their first version; under
+--earlier each of them, at every main shape and (K1, K3, K4, K6) every edge
+shape, is first held identical to the earlier build.
 `intra_encode` and `intra_decode` carry "steps", the length of the chain
 of dependent diagonals at the timed shape.
 
@@ -194,9 +208,15 @@ def synthetic_clip(seed: int, n: int) -> list:
     return frames
 
 
-def time_ms(fn, reps: int, warmup: int = 2, inner: int = 1) -> float:
+SPIN_CYCLES = 2_000_000      # about a millisecond of an H100's clock
+
+
+def time_ms(fn, reps: int, warmup: int = 2, inner: int = 1,
+            spin: bool = False) -> float:
     """Median over `reps` of the time of `inner` calls between two CUDA
-    events, per call."""
+    events, per call. With `spin` the device first spins for about a
+    millisecond, so that the events and all the calls are queued before
+    the first of them starts."""
     import torch
     for _ in range(warmup):
         fn()
@@ -205,6 +225,8 @@ def time_ms(fn, reps: int, warmup: int = 2, inner: int = 1) -> float:
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        if spin:
+            torch.cuda._sleep(SPIN_CYCLES)
         start.record()
         for _ in range(inner):
             fn()
@@ -215,10 +237,11 @@ def time_ms(fn, reps: int, warmup: int = 2, inner: int = 1) -> float:
 
 
 def kernel_ms(fn, reps: int = 20) -> float:
-    """A kernel wrapper's time per launch: four launches queue up between
-    the events, so the host's work before a launch (tens of microseconds
-    that vary with the host) hides behind the launch before it."""
-    return time_ms(fn, reps, inner=4)
+    """A kernel wrapper's time per launch: four launches queue up behind a
+    spin on the device, so the host's work before a launch (tens of
+    microseconds that vary with the host and the wrapper, more than the
+    smallest kernels take) is done before the first launch starts."""
+    return time_ms(fn, reps, inner=4, spin=True)
 
 
 def bound(n_bytes: float, n_ops: float) -> dict:
@@ -281,20 +304,24 @@ def read_counts() -> dict:
 
 
 EARLIER = None      # ctypes library of an earlier build of the kernels (--earlier)
-# which of today's interfaces the earlier sources have: vcs_intra_encode with
-# the quantiser's magic and shift, vcs_intra_decode with a scratch plane,
-# vcs_fused_p_decode with its tables in host memory
-EARLIER_HAS = {"magic": False, "scratch": False, "tabs_host": False}
-EARLIER_SOURCES = ("motion_sad.cu", "intra_wavefront.cu", "inter_fused.cu")
+# which of today's interfaces the earlier sources have, each by a word of
+# its source: vcs_intra_encode with the quantiser's magic and shift,
+# vcs_intra_decode with a scratch plane, vcs_fused_p_decode and
+# vcs_fused_p_encode with their tables in host memory, vcs_compensate with
+# the form chosen by its caller
+EARLIER_HAS = {"magic": False, "scratch": False, "tabs_host": False,
+               "enc_tabs_host": False, "int form": False}
+EARLIER_SOURCES = ("motion_sad.cu", "intra_wavefront.cu", "inter_fused.cu",
+                   "motion_comp.cu")
 
 
 def load_earlier(src_dir: str) -> None:
-    """Build those of `motion_sad.cu`, `intra_wavefront.cu` and
-    `inter_fused.cu` (with its `block_origin.cuh`) that `src_dir` holds, an
-    earlier version of the sources, with the port's nvcc flags into a second
-    library, so that both versions are timed in one run on one card. Each
-    entry point is taken with the interface its source has: today's, or the
-    one it had before (`EARLIER_HAS`)."""
+    """Build those of `EARLIER_SOURCES` (with the `.cuh` headers they
+    include) that `src_dir` holds, an earlier version of the sources, with
+    the port's nvcc flags into a second library, so that both versions are
+    timed in one run on one card. Each entry point is taken with the
+    interface its source has: today's, or the one it had before
+    (`EARLIER_HAS`)."""
     import ctypes
     global EARLIER
     from vcs_h264_tpu_torch.ops import _build
@@ -312,7 +339,9 @@ def load_earlier(src_dir: str) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
     for key, name in (("magic", "intra_wavefront.cu"),
                       ("scratch", "intra_wavefront.cu"),
-                      ("tabs_host", "inter_fused.cu")):
+                      ("tabs_host", "inter_fused.cu"),
+                      ("enc_tabs_host", "inter_fused.cu"),
+                      ("int form", "motion_comp.cu")):
         path = os.path.join(src_dir, name)
         if path in srcs:
             with open(path) as f:
@@ -328,8 +357,12 @@ def load_earlier(src_dir: str) -> None:
             list(_build.SIGNATURES["vcs_intra_decode"])
             if EARLIER_HAS["scratch"] else [p, p, p, p, i, i, i, i, i, p])
     if hasattr(lib, "vcs_fused_p_decode"):
-        lib.vcs_fused_p_decode.argtypes = list(
-            _build.SIGNATURES["vcs_fused_p_decode"])
+        for entry in ("vcs_fused_p_decode", "vcs_fused_p_encode"):
+            getattr(lib, entry).argtypes = list(_build.SIGNATURES[entry])
+    if hasattr(lib, "vcs_compensate"):
+        lib.vcs_compensate.argtypes = (
+            list(_build.SIGNATURES["vcs_compensate"])
+            if EARLIER_HAS["int form"] else [p, p, p, i, i, i, i, i, i, p])
     EARLIER = lib
 
 
@@ -358,24 +391,59 @@ def earlier_intra_decode(res, modes, esc, qstep: int, clip: bool):
     return run
 
 
-def earlier_fused_decode(mv, refs, co, qf: float):
-    """A function that runs the earlier build's K4 on these operands and
-    returns its output tensor."""
+# the fused pair of the earlier build: (entry point, the word of its source
+# that says its tables come from host memory, output type, wrapper, name)
+FUSED = {"encode": ("vcs_fused_p_encode", "enc_tabs_host", "int16",
+                    "fused_p_encode", "K3"),
+         "decode": ("vcs_fused_p_decode", "tabs_host", "uint8",
+                    "fused_p_decode", "K4")}
+
+
+def earlier_fused(which: str, mv, refs, data, qf: float):
+    """A function that runs the earlier build's K3 (`which` "encode", data
+    the frames) or K4 ("decode", data the coefficients) on these operands
+    and returns its output tensor."""
     import torch
     from vcs_h264_tpu_torch.ops import inter_cuda
-    g, f, _, h, w = co.shape
-    out = torch.empty(co.shape, dtype=torch.uint8, device=co.device)
+    entry, host_key, dtype, _, kernel = FUSED[which]
+    g, f, _, h, w = data.shape
+    out = torch.empty(data.shape, dtype=getattr(torch, dtype),
+                      device=data.device)
     tabs = (inter_cuda._tables_np(float(qf)).ctypes.data
-            if EARLIER_HAS["tabs_host"]
-            else inter_cuda._tables(float(qf), co.device).data_ptr())
+            if EARLIER_HAS[host_key]
+            else inter_cuda._tables(float(qf), data.device).data_ptr())
     stream = torch.cuda.current_stream().cuda_stream
 
     def run():
-        err = EARLIER.vcs_fused_p_decode(
-            mv.data_ptr(), refs.data_ptr(), co.data_ptr(), tabs,
+        err = getattr(EARLIER, entry)(
+            mv.data_ptr(), refs.data_ptr(), data.data_ptr(), tabs,
             out.data_ptr(), g, f, h, w, stream)
         if err:
-            fail(f"the earlier K4 build: CUDA error {err}")
+            fail(f"the earlier {kernel} build: CUDA error {err}")
+        return out
+    return run
+
+
+def earlier_compensate(mv, refs, bs: int):
+    """A function that runs the earlier build's K1 on these operands (in
+    the form today's wrapper would choose, where that build has forms) and
+    returns its output tensor."""
+    import torch
+    from vcs_h264_tpu_torch.ops import motion_cuda
+    g, c, h, w = refs.shape
+    f = mv.shape[1]
+    out = torch.empty((g, f, c, h, w), dtype=torch.uint8, device=refs.device)
+    form = (motion_cuda.compensate_form(bs, w, refs.data_ptr(),
+                                        out.data_ptr()),) \
+        if EARLIER_HAS["int form"] else ()
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def run():
+        err = EARLIER.vcs_compensate(mv.data_ptr(), refs.data_ptr(),
+                                     out.data_ptr(), g, f, c, h, w, bs,
+                                     *form, stream)
+        if err:
+            fail(f"the earlier K1 build: CUDA error {err}")
         return out
     return run
 
@@ -394,17 +462,34 @@ def earlier_decode_ms(res, modes, esc, qstep: int, clip: bool, what: str):
     return kernel_ms(run)
 
 
-def earlier_fused_decode_ms(mv, refs, co, qf: float, what: str):
-    """The earlier build's K4 on these operands: its time, after holding
-    its frames identical to today's kernel; None without --earlier."""
+def earlier_fused_ms(which: str, mv, refs, data, qf: float, what: str):
+    """The earlier build's K3 or K4 (`earlier_fused`) on these operands: its
+    time, after holding its output identical to today's kernel; None
+    without --earlier."""
     import torch
     from vcs_h264_tpu_torch.ops import inter_cuda
-    if not earlier_has("vcs_fused_p_decode"):
+    entry, _, _, wrapper, kernel = FUSED[which]
+    if not earlier_has(entry):
         return None
-    run = earlier_fused_decode(mv, refs, co, qf)
-    if not torch.equal(run(), inter_cuda.fused_p_decode(mv, refs, co, qf)):
-        fail(f"the earlier K4 build disagrees with today's kernel ({what})")
+    run = earlier_fused(which, mv, refs, data, qf)
+    if not torch.equal(run(), getattr(inter_cuda, wrapper)(mv, refs, data,
+                                                           qf)):
+        fail(f"the earlier {kernel} build disagrees with today's kernel "
+             f"({what})")
     return kernel_ms(run)
+
+
+def earlier_compensate_ms(mv, refs, bs: int, what: str):
+    """The earlier build's K1 on these operands: its time, after holding
+    its frames identical to today's kernel; None without --earlier."""
+    import torch
+    from vcs_h264_tpu_torch.ops import motion_cuda
+    if not earlier_has("vcs_compensate"):
+        return None
+    run = earlier_compensate(mv, refs, bs)
+    if not torch.equal(run(), motion_cuda.compensate(mv, refs, bs=bs)):
+        fail(f"the earlier K1 build disagrees with today's kernel ({what})")
+    return kernel_ms(run, 50)
 
 
 def earlier_search_ms(curs, refs, search: dict):
@@ -519,6 +604,25 @@ def edge_shape_phase() -> None:
               f"(max |diff|, count) searched/random/before-edge: {worst}")
 
 
+# [G, F, H, W] where a strip of 16 blocks is partly filled or just full
+FUSED_EDGE_SHAPES = ((1, 1, 8, 8), (2, 1, 16, 24), (1, 2, 8, 136),
+                     (1, 3, 24, 120), (2, 2, 16, 128), (1, 1, 40, 264))
+
+
+def fused_edge_vectors(rng, g, f, h, w):
+    """Three named sets of vectors for K3's and K4's edge shapes: in reach,
+    with source origins before the top and left edges, and up to three
+    extents outside with every seventh value at an int32 extreme."""
+    shape = (g, f, h // 8, w // 8, 2)
+    ext = 3 * max(h, w)
+    far = rng.integers(-ext, ext + 1, shape)
+    far.reshape(-1)[::7] = rng.choice(
+        [-2**31, 2**31 - 1, -2**31 + 5, 2**31 - 9], far.reshape(-1)[::7].size)
+    return (("in reach", rng.integers(-16, 17, shape)),
+            ("before the edges", edge_vectors(g, f, h, w)),
+            ("far outside", far))
+
+
 def fused_decode_edge_phase() -> None:
     """Phase 3a, K4 alone, at the shapes its strips, wide loads and shifted
     reference words can get wrong: widths of 8, 24, 136 and one strip of 128
@@ -533,20 +637,12 @@ def fused_decode_edge_phase() -> None:
 
     rng = np.random.default_rng(8)
     n_cases = 0
-    for g, f, h, w in ((1, 1, 8, 8), (2, 1, 16, 24), (1, 2, 8, 136),
-                       (1, 3, 24, 120), (2, 2, 16, 128), (1, 1, 40, 264)):
+    for g, f, h, w in FUSED_EDGE_SHAPES:
         refs = torch.from_numpy(
             rng.integers(0, 256, (g, 3, h, w), dtype=np.uint8)).cuda()
         curs = torch.from_numpy(
             rng.integers(0, 256, (g, f, 3, h, w), dtype=np.uint8)).cuda()
-        shape = (g, f, h // 8, w // 8, 2)
-        ext = 3 * max(h, w)
-        far = rng.integers(-ext, ext + 1, shape)
-        far.reshape(-1)[::7] = rng.choice(
-            [-2**31, 2**31 - 1, -2**31 + 5, 2**31 - 9], far.reshape(-1)[::7].size)
-        vectors = (("in reach", rng.integers(-16, 17, shape)),
-                   ("before the edges", edge_vectors(g, f, h, w)),
-                   ("far outside", far))
+        vectors = fused_edge_vectors(rng, g, f, h, w)
         for what, mv in vectors:
             mv = torch.from_numpy(mv.astype(np.int32)).cuda()
             coded = inter_cuda.encode_p_coeffs_plain(mv, refs, curs, 50.0)
@@ -562,7 +658,7 @@ def fused_decode_edge_phase() -> None:
                          f"{what}, coefficients {kind}: max {int(d.max())}, "
                          f"{int((d != 0).sum())} values")
                 if earlier_has("vcs_fused_p_decode") and not torch.equal(
-                        earlier_fused_decode(mv, refs, co, 50.0)(), got):
+                        earlier_fused("decode", mv, refs, co, 50.0)(), got):
                     fail(f"K4 differs from the earlier build at "
                          f"{(g, f, h, w)}, vectors {what}, coefficients "
                          f"{kind}")
@@ -574,6 +670,56 @@ def fused_decode_edge_phase() -> None:
           + ": widths 8, 24, 120, 128, 136, 264; one block row; F = 1; "
           "vectors in reach, before the edges, far outside and at the int32 "
           "extremes; coded and +-32767 coefficients")
+
+
+def fused_encode_edge_phase() -> None:
+    """Phase 3a, K3 alone, the mirror of `fused_decode_edge_phase`: the same
+    widths (strips of 16 blocks that are partly filled, 8-byte loads and
+    16-byte stores at every row of a narrow frame), one block row, one
+    P-frame, the same vectors; frames of random bytes and frames of 0 and
+    255 only (residuals of +-255 on every channel at once); quality factors
+    50, 1 (tables of 255) and 99 (tables of 1 and 2, the largest
+    coefficients). Bound: within 1 of the plain version on at most 2 values
+    a case; with --earlier also identical to the earlier build."""
+    import torch
+    from vcs_h264_tpu_torch.ops import inter_cuda
+
+    rng = np.random.default_rng(11)
+    n_cases = 0
+    for g, f, h, w in FUSED_EDGE_SHAPES:
+        vectors = fused_edge_vectors(rng, g, f, h, w)
+        frames = (("random", rng.integers(0, 256, (g, 3, h, w)),
+                   rng.integers(0, 256, (g, f, 3, h, w))),
+                  ("0 and 255", rng.choice([0, 255], (g, 1, h, w)).repeat(3, 1),
+                   rng.choice([0, 255], (g, f, 1, h, w)).repeat(3, 2)))
+        for kind, refs, curs in frames:
+            refs = torch.from_numpy(refs.astype(np.uint8)).cuda()
+            curs = torch.from_numpy(curs.astype(np.uint8)).cuda()
+            for what, mv in vectors:
+                mv = torch.from_numpy(mv.astype(np.int32)).cuda()
+                for qf in (50.0, 1.0, 99.0):
+                    got = inter_cuda.fused_p_encode(mv, refs, curs, qf)
+                    want = inter_cuda.encode_p_coeffs_plain(mv, refs, curs, qf)
+                    d = (got.to(torch.int32) - want.to(torch.int32)).abs()
+                    if int(d.max()) > 1 or int((d != 0).sum()) > 2:
+                        fail(f"K3 outside the bound at {(g, f, h, w)}, "
+                             f"vectors {what}, frames {kind}, quality {qf}: "
+                             f"max {int(d.max())}, {int((d != 0).sum())} "
+                             "values")
+                    if earlier_has("vcs_fused_p_encode") and not torch.equal(
+                            earlier_fused("encode", mv, refs, curs, qf)(), got):
+                        fail(f"K3 differs from the earlier build at "
+                             f"{(g, f, h, w)}, vectors {what}, frames {kind}, "
+                             f"quality {qf}")
+                    n_cases += 1
+    print(f"[edge K3] {n_cases} encodes within 1 of the plain version on at "
+          "most 2 values each"
+          + (", identical to the earlier build"
+             if earlier_has("vcs_fused_p_encode") else "")
+          + ": widths 8, 24, 120, 128, 136, 264; one block row; F = 1; "
+          "vectors in reach, before the edges, far outside and at the int32 "
+          "extremes; random frames and frames of 0 and 255; quality 50, 1 "
+          "and 99")
 
 
 def search_case(rng, g, f, c, h, w, kind: str):
@@ -604,14 +750,23 @@ def search_case(rng, g, f, c, h, w, kind: str):
     return curs.contiguous(), refs
 
 
-def misaligned(t):
-    """A contiguous copy of uint8 `t` that starts one byte after a 4-byte
-    boundary: K2's entry point then takes its byte kernel."""
+def offset_view(shape, device, offset: int, align: int = 16):
+    """A contiguous uint8 tensor of `shape` that starts `offset` bytes
+    after an `align`-byte boundary."""
     import torch
-    buf = torch.empty(t.numel() + 1, dtype=torch.uint8, device=t.device)
-    out = buf[1:].view(t.shape)
+    buf = torch.empty(int(np.prod(shape)) + offset, dtype=torch.uint8,
+                      device=device)
+    out = buf[offset:].view(shape)
+    assert out.data_ptr() % align == offset and out.is_contiguous()
+    return out
+
+
+def misaligned(t, offset: int = 1):
+    """A contiguous copy of uint8 `t` that starts `offset` bytes after a
+    4-byte boundary: K2's entry point then takes its byte kernel, K1's
+    wrapper its general form."""
+    out = offset_view(t.shape, t.device, offset, 4)
     out.copy_(t)
-    assert out.data_ptr() % 4 == 1 and out.is_contiguous()
     return out
 
 
@@ -1016,77 +1171,157 @@ def kernel_phase(frames, card: str):
             fail(f"K4 pixels outside the bound ({name} mv)")
         enc_err, dec_err = max(enc_err, e_max), max(dec_err, p_max)
         if name == "random":      # the searched vectors' turn comes below
-            earlier_fused_decode_ms(mv, refs, co_p, qf, "random vectors")
+            earlier_fused_ms("decode", mv, refs, co_p, qf, "random vectors")
+            earlier_fused_ms("encode", mv, refs, curs, qf, "random vectors")
 
     co = inter_cuda.encode_p_coeffs_plain(mv_p, refs, curs, qf)
     results["fused_p_encode"] = dict(
-        max_abs_err=enc_err,
+        max_abs_err=enc_err, redesigned=True,
+        earlier_ms=earlier_fused_ms("encode", mv_p, refs, curs, qf,
+                                    "searched vectors"),
         ms=kernel_ms(lambda: inter_cuda.fused_p_encode(mv_p, refs, curs, qf)),
         plain_ms=time_ms(lambda: inter_cuda.encode_p_coeffs_plain(
             mv_p, refs, curs, qf), 10),
         **coded_bound(mv_p, refs, curs, co, True), library_ms=None)
     results["fused_p_decode"] = dict(
         max_abs_err=dec_err, redesigned=True,
-        earlier_ms=earlier_fused_decode_ms(mv_p, refs, co, qf,
-                                           "searched vectors"),
+        earlier_ms=earlier_fused_ms("decode", mv_p, refs, co, qf,
+                                    "searched vectors"),
         ms=kernel_ms(lambda: inter_cuda.fused_p_decode(mv_p, refs, co, qf)),
         plain_ms=time_ms(lambda: inter_cuda.decode_p_frames_plain(
             mv_p, refs, co, qf), 10),
         **coded_bound(mv_p, refs, co, curs, True), library_ms=None)
     print_times(results, f"G={GOPS} F={P_PER_GOP} {W}x{H}", card)
-    earlier = results["fused_p_decode"]["earlier_ms"]
-    if earlier is not None:
-        print(f"[K4 fused_p_decode] identical to the earlier build on "
-              f"searched and random vectors; the earlier build takes "
-              f"{earlier:.4f} ms ({card})")
+    for kernel, name in (("K3", "fused_p_encode"), ("K4", "fused_p_decode")):
+        earlier = results[name]["earlier_ms"]
+        if earlier is not None:
+            print(f"[{kernel} {name}] identical to the earlier build on "
+                  f"searched and random vectors; the earlier build takes "
+                  f"{earlier:.4f} ms ({card})")
     return results
 
 
+def compensate_vectors(rng, g, f, h, w, bs):
+    """Two sets of vectors for K1's edge shapes: random ones up to three
+    extents long, and vectors whose source origins fall at -1, -bs,
+    -extent - 3, extent - bs - 3 to extent - bs + 1 (every byte shift next
+    to the last start), extent and 3 * extent on each axis, every 13th at
+    an int32 extreme."""
+    nbh, nbw = h // bs, w // bs
+    ext = 3 * max(h, w)
+    mv_r = rng.integers(-ext, ext + 1, (g, f, nbh, nbw, 2))
+
+    def along(n):
+        return (-1, -bs, -n - 3, n - bs - 3, n - bs - 2, n - bs - 1, n - bs,
+                n - bs + 1, n, 3 * n, 0)
+    cases = [(oj, oi) for oi in along(h) for oj in along(w)]
+    n = rng.permutation(g * f * nbh * nbw).reshape(g, f, nbh, nbw)
+    mv_e = np.array(cases, dtype=np.int64)[n % len(cases)]
+    mv_e[..., 0] -= np.arange(nbw) * bs
+    mv_e[..., 1] -= np.arange(nbh)[:, None] * bs
+    mv_e.reshape(-1)[::13] = rng.choice(
+        [-2**31, 2**31 - 1, -2**31 + 5, 2**31 - 9],
+        mv_e.reshape(-1)[::13].size)
+    return mv_r.astype(np.int32), mv_e.astype(np.int32)
+
+
 def compensate_edge_phase() -> None:
-    """Phase 3e: K1 vs the plain gather at small shapes: block sizes 2-16
-    (6 makes blocks straddle a CTA's 1024-pixel segment), C 1 and 3, one
+    """Phase 3e: K1 vs the plain gather at small shapes, identical; with
+    --earlier also identical to the earlier build. Block sizes 2-16 (6 makes
+    blocks straddle a segment of the general form's CTAs), C 1, 2 and 3, one
     block row, widths that are not multiples of 32 (or of 4: the byte-store
-    path), a row longer than one segment; random vectors up to three
-    extents long and vectors whose source origins fall at -1, -bs,
-    -extent - 3, extent - bs + 1, extent and 3 * extent on each axis."""
+    path), a row longer than one segment, and for the fast form (bs 4, 8,
+    16) widths of 16, 48 and 1296; the vectors of `compensate_vectors`. Each
+    fast-form shape runs in the fast form, in the general form on the same
+    operands, with refs one, two and three bytes off a word boundary and
+    with out 4, 8 and 1 bytes off a 16-byte boundary: the wrapper must take
+    the general form for these, and every result is the same."""
     import torch
     from vcs_h264_tpu_torch.ops import motion, motion_cuda
 
     rng = np.random.default_rng(4)
+    fast, general = motion_cuda.FORM_FAST, motion_cuda.FORM_GENERAL
+    n_form = {fast: 0, general: 0}
+
+    def check(mv, refs, bs, want, out=None, form=None, expect=None):
+        if out is None:
+            out = torch.empty(want.shape, dtype=torch.uint8, device="cuda")
+        chosen = motion_cuda.compensate_form(bs, refs.shape[-1],
+                                             refs.data_ptr(), out.data_ptr())
+        if expect is not None and chosen != expect:
+            fail(f"K1's wrapper chose form {chosen}, not {expect}, at bs "
+                 f"{bs}, {tuple(refs.shape)}, refs at {refs.data_ptr() % 4} "
+                 f"mod 4, out at {out.data_ptr() % 16} mod 16")
+        out.fill_(0x5a)
+        got = motion_cuda.compensate(mv, refs, bs=bs, form=form, out=out)
+        if not torch.equal(got, want):
+            fail(f"K1 (form {chosen if form is None else form}) differs "
+                 f"from the plain gather at bs {bs}, {tuple(refs.shape)}, "
+                 f"refs at {refs.data_ptr() % 4} mod 4, out at "
+                 f"{out.data_ptr() % 16} mod 16")
+        n_form[chosen if form is None else form] += 1
+
     for bs in (2, 4, 6, 8, 16):
-        for c in (1, 3):
-            for g, f, h, w in ((1, 2, bs, 5 * bs), (2, 3, 3 * bs, 7 * bs),
-                               (1, 1, 2 * bs, bs * (1100 // bs + 1))):
-                refs = torch.from_numpy(
-                    rng.integers(0, 256, (g, c, h, w), dtype=np.uint8)).cuda()
-                nbh, nbw = h // bs, w // bs
-                ext = 3 * max(h, w)
-                mv_r = rng.integers(-ext, ext + 1, (g, f, nbh, nbw, 2))
-                cases = [(oj, oi) for oi in (-1, -bs, -h - 3, h - bs + 1, h,
-                                             3 * h, 0)
-                         for oj in (-1, -bs, -w - 3, w - bs + 1, w, 3 * w, 0)]
-                n = np.arange(g * f * nbh * nbw).reshape(g, f, nbh, nbw)
-                mv_e = np.array(cases)[n % len(cases)]
-                mv_e[..., 0] -= np.arange(nbw) * bs
-                mv_e[..., 1] -= np.arange(nbh)[:, None] * bs
-                for mv in (mv_r, mv_e):
-                    mv = torch.from_numpy(mv.astype(np.int32)).cuda()
-                    got = motion_cuda.compensate(mv, refs, bs=bs)
-                    want = motion.motion_compensate_plain(mv, refs, bs=bs)
-                    if not torch.equal(got, want):
-                        fail(f"K1 differs from the plain gather at bs {bs}, "
-                             f"{(g, f, c, h, w)}")
+        shapes = [(1, 2, c, bs, 5 * bs) for c in (1, 3)]
+        shapes += [(2, 3, c, 3 * bs, 7 * bs) for c in (1, 3)]
+        shapes += [(1, 1, c, 2 * bs, bs * (1100 // bs + 1)) for c in (1, 3)]
+        if bs in (4, 8, 16):
+            shapes += [(2, 2, 1, bs, 16), (1, 3, 2, 2 * bs, 48),
+                       (2, 1, 3, 3 * bs, 48), (1, 2, 3, 2 * bs, 1296)]
+        for g, f, c, h, w in shapes:
+            refs = torch.from_numpy(
+                rng.integers(0, 256, (g, c, h, w), dtype=np.uint8)).cuda()
+            takes_fast = bs in (4, 8, 16) and w % 16 == 0
+            for mv in compensate_vectors(rng, g, f, h, w, bs):
+                mv = torch.from_numpy(mv).cuda()
+                want = motion.motion_compensate_plain(mv, refs, bs=bs)
+                check(mv, refs, bs, want,
+                      expect=fast if takes_fast else general)
+                if earlier_has("vcs_compensate") and not torch.equal(
+                        earlier_compensate(mv, refs, bs)(), want):
+                    fail(f"the earlier K1 build differs from the plain "
+                         f"gather at bs {bs}, {(g, f, c, h, w)}")
+                if not takes_fast:
+                    continue
+                check(mv, refs, bs, want, form=general)
+                for off in (1, 2, 3):
+                    check(mv, misaligned(refs, off), bs, want, expect=general)
+                for off in (4, 8, 1):
+                    check(mv, refs, bs, want, expect=general,
+                          out=offset_view(want.shape, "cuda", off))
         print(f"[edge compensate bs {bs}] K1 identical to the plain gather "
-              "at C 1 and 3, one block row, narrow and long rows, random "
-              "and out-of-frame vectors")
+              "at C 1, 2 and 3, one block row, narrow and long rows, random "
+              "and out-of-frame vectors, every byte shift next to the last "
+              "column, int32 extremes")
+    print(f"[edge compensate] {n_form[fast]} launches of the fast form, "
+          f"{n_form[general]} of the general form (other block sizes and "
+          "widths, asked for, refs off a word boundary, out off a 16-byte "
+          "boundary), all identical to the plain gather"
+          + (" and to the earlier build" if earlier_has("vcs_compensate")
+             else ""))
+    refs = torch.zeros((1, 1, 8, 16), dtype=torch.uint8, device="cuda")
+    mv = torch.zeros((1, 1, 1, 2, 2), dtype=torch.int32, device="cuda")
+    try:
+        motion_cuda.compensate(mv, misaligned(refs, 1), bs=8, form=fast)
+    except ValueError:
+        pass
+    else:
+        fail("K1's wrapper let the fast form take refs off a word boundary")
 
 
 def compensate_kernel_phase(frames, card: str):
     """Phase 3f: K1 vs the plain gather at the main path's shapes: the
     clip's 8 GOPs of 3 P-frames on the searched vectors (reference mode's
     shape), and the B shape, 4 GOPs x 3 B-frames of one frame each against
-    their previous anchors."""
+    their previous anchors; then at bs 4 on the B shape's 2 x 360 x 640
+    chroma planes with the floor-halved vectors (the 4:2:0 B path) and at
+    bs 16 on the P shape with random vectors (`with_dct=False`). Each is
+    identical in the fast form the wrapper chooses, in the general form
+    asked for on the same operands, and to the earlier build with
+    --earlier; the general form's time, or the earlier build's, is the
+    entry's "earlier_ms"."""
     import torch
+    from vcs_h264_tpu_torch.models import pipeline420
     from vcs_h264_tpu_torch.ops import motion, motion_cuda
 
     gop_len = P_PER_GOP + 1
@@ -1097,34 +1332,60 @@ def compensate_kernel_phase(frames, card: str):
     bclip = bclip.permute(0, 3, 1, 2).reshape(B_GOPS, len(IBPBPBP), 3, H, W)
     b_curs = bclip[:, 1::2].reshape(-1, 1, 3, H, W).contiguous()
     b_refs = bclip[:, 0:-1:2].reshape(-1, 3, H, W).contiguous()
+    mv_p = motion_cuda.sad_search(curs, refs)
+    mv_b = motion_cuda.sad_search(b_curs, b_refs)
+    _, c_refs = pipeline420.ingest_420(b_refs[:, None])
+    rng = np.random.default_rng(12)
+    mv_16 = torch.from_numpy(rng.integers(
+        -16, 17, (GOPS, P_PER_GOP, H // 16, W // 16, 2),
+        dtype=np.int32)).cuda()
+    cases = (("P", 8, mv_p, refs), ("B", 8, mv_b, b_refs),
+             ("B chroma, bs 4", 4, pipeline420._chroma_mv(mv_b),
+              c_refs[:, 0].contiguous()),
+             ("P, bs 16", 16, mv_16, refs))
     out = {}
-    for name, c, r in (("P", curs, refs), ("B", b_curs, b_refs)):
-        mv = motion_cuda.sad_search(c, r)
-        got = motion_cuda.compensate(mv, r, bs=8)
-        want = motion.motion_compensate_plain(mv, r, bs=8)
-        if not torch.equal(got, want):
+    for name, bs, mv, r in cases:
+        g, c, h, w = r.shape
+        got = motion_cuda.compensate(mv, r, bs=bs)
+        if motion_cuda.compensate_form(bs, w, r.data_ptr(), got.data_ptr()) \
+                != motion_cuda.FORM_FAST:
+            fail(f"K1 did not take its fast form at the {name} shape")
+        want = motion.motion_compensate_plain(mv, r, bs=bs)
+        general = motion_cuda.compensate(mv, r, bs=bs,
+                                         form=motion_cuda.FORM_GENERAL)
+        if not torch.equal(got, want) or not torch.equal(general, want):
             fail(f"K1 differs from the plain gather at the {name} shape")
+        del general
         err = int((got.to(torch.int32) - want.to(torch.int32)).abs().max())
         # the one PyTorch call: torch.gather on an index built beforehand,
         # the block-major result not yet transposed back to a frame
-        src, idx = motion.gather_operands(mv, r, 8)
+        src, idx = motion.gather_operands(mv, r, bs)
         idx = idx.contiguous()
         if not torch.equal(
-                torch.gather(src, 3, idx).reshape(*mv.shape[:2], 3, H // 8,
-                                                  W // 8, 8, 8)
+                torch.gather(src, 3, idx).reshape(*mv.shape[:2], c, h // bs,
+                                                  w // bs, bs, bs)
                 .transpose(-3, -2).reshape(got.shape), got):
             fail(f"torch.gather differs from K1 at the {name} shape")
+        general_ms = kernel_ms(lambda: motion_cuda.compensate(
+            mv, r, bs=bs, form=motion_cuda.FORM_GENERAL), 50)
+        earlier = earlier_compensate_ms(mv, r, bs, f"{name} shape")
         out[name] = dict(
-            max_abs_err=err,
-            ms=kernel_ms(lambda: motion_cuda.compensate(mv, r, bs=8), 50),
+            max_abs_err=err, redesigned=True,
+            earlier_ms=general_ms if earlier is None else earlier,
+            ms=kernel_ms(lambda: motion_cuda.compensate(mv, r, bs=bs), 50),
             plain_ms=time_ms(lambda: motion.motion_compensate_plain(
-                mv, r, bs=8), 20),
+                mv, r, bs=bs), 20),
             **bound(nbytes(mv, r, got), 0),
             library_ms=kernel_ms(lambda: torch.gather(src, 3, idx)))
         del src, idx
         print_times({f"compensate, {name} shape": out[name]},
-                    f"G={mv.shape[0]} F={mv.shape[1]} {W}x{H}, identical to "
-                    "the plain gather", card)
+                    f"G={mv.shape[0]} F={mv.shape[1]} {c}x{w}x{h} bs {bs}, "
+                    "identical to the plain gather", card)
+        print(f"[K1 compensate, {name} shape] the fast form ran; the general "
+              f"form, identical too, takes {general_ms:.4f} ms"
+              + ("" if earlier is None
+                 else f", the earlier build, identical, {earlier:.4f} ms")
+              + f" ({card})")
     return {"compensate": out["P"]}
 
 
@@ -1574,8 +1835,7 @@ def main() -> int:
     ap.add_argument("--profile", action="store_true",
                     help="profile each path once instead of checking")
     ap.add_argument("--earlier", metavar="DIR",
-                    help="time the K2, K4, K5 and K6 of the sources in DIR "
-                    "as well")
+                    help="time the K1 to K6 of the sources in DIR as well")
     args = ap.parse_args()
 
     import torch
@@ -1611,6 +1871,7 @@ def main() -> int:
 
     edge_shape_phase()
     fused_decode_edge_phase()
+    fused_encode_edge_phase()
     search_edge_phase()
     intra_edge_phase()
     decode_edge_phase()

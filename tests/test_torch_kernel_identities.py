@@ -1,5 +1,5 @@
-"""The identities that the K2, K4, K5 and K6 CUDA kernels of
-vcs_h264_tpu_torch rely on, held on the CPU with numpy from a seed:
+"""The identities that the K1 to K6 CUDA kernels of vcs_h264_tpu_torch rely
+on, held on the CPU with numpy from a seed:
 
   * K2 (`csrc/motion_sad.cu`) takes four byte differences in one 32-bit word:
     `wrap_sad4` and `sat_sad4` below repeat its `wrap_sad4` / `sat_sad4`
@@ -19,7 +19,14 @@ vcs_h264_tpu_torch rely on, held on the CPU with numpy from a seed:
   * K4 (`csrc/inter_fused.cu`) runs each 8-point pass in one thread's
     registers in the order `ops/dct.py` sums in, cuts an 8-byte reference row
     out of aligned words, and exchanges values between the passes through a
-    skewed shared buffer that no access pattern may hit with a bank conflict.
+    skewed shared buffer that no access pattern may hit with a bank conflict;
+  * K3 (`csrc/inter_fused.cu`) is K4's strip run forwards: the RCT on a row's
+    pixels, the two passes in a column's and a row's thread, the true division
+    and the eight results' low 16 bits packed two to a word;
+  * K1's fast form (`csrc/motion_comp.cu`) writes 16-byte words whose source
+    rows it cuts out of aligned 32-bit words, the shift being one per block;
+    `ops.motion_cuda.compensate_form` decides which shapes and operands take
+    it.
 """
 
 import numpy as np
@@ -32,7 +39,8 @@ torch.set_num_threads(2)
 
 from vcs_h264_tpu.ops import motion as jmotion  # noqa: E402
 
-from vcs_h264_tpu_torch.ops import dct, intra, motion  # noqa: E402
+from vcs_h264_tpu_torch.ops import dct, inter_cuda, intra, motion  # noqa: E402
+from vcs_h264_tpu_torch.ops import motion_cuda, quant  # noqa: E402
 from vcs_h264_tpu_torch.ops.intra_cuda import quant_magic  # noqa: E402
 
 HIGH = np.uint32(0x80808080)
@@ -570,3 +578,254 @@ def test_exchange_buffer_has_no_bank_conflict(side):
             else:
                 at = _exchange_at(tids // 8, fixed, tids % 8)
             assert len(set((at % 32).tolist())) == 32
+
+
+# --- K3: the RCT, one thread's passes, the quotient, the packed store ---------
+
+
+def register_rct(resid):
+    """K3's RCT on float32 residuals [..., 3, 8, 8] (B, G, R planes), each
+    product and sum rounded to float32 in the kernel's order."""
+    c = np.float32
+    rb, rg, rr = (resid[..., i, :, :].astype(np.float32) for i in range(3))
+    yy = (c(0.299) * rr + c(0.587) * rg) + c(0.114) * rb
+    return np.stack([yy, (rr - yy) * c(0.713), (rb - yy) * c(0.564)], -3)
+
+
+def register_dct(x, d):
+    """K3's two passes on float32 blocks [..., 8, 8]: the thread of column k
+    forms T[i][k] = sum_j D[i][j] X[j][k], the thread of row i forms Z[i][l]
+    = sum_k T[i][k] D[l][k], each from acc = 0 by acc = acc + d * x with
+    every product and sum rounded to float32, j and k ascending."""
+    x, d = x.astype(np.float32), d.astype(np.float32)
+    t = np.zeros_like(x)
+    for i in range(8):
+        acc = np.zeros(x.shape[:-2] + (8,), dtype=np.float32)
+        for j in range(8):
+            acc = acc + d[i, j] * x[..., j, :]
+        t[..., i, :] = acc
+    z = np.zeros_like(x)
+    for l in range(8):
+        acc = np.zeros(x.shape[:-2] + (8,), dtype=np.float32)
+        for k in range(8):
+            acc = acc + t[..., :, k] * d[l, k]
+        z[..., :, l] = acc
+    return z
+
+
+def pack_int16_pairs(v):
+    """Eight int32 [..., 8] -> four uint32 words [..., 4], the low 16 bits of
+    each, the even one in the low half: what K3 stores."""
+    u = v.astype(np.int64) & 0xffff
+    return (u[..., 0::2] | (u[..., 1::2] << 16)).astype(np.uint32)
+
+
+def _residual_blocks(kind, rng, n=400):
+    if kind == "residual":           # what a good prediction leaves
+        return rng.integers(-12, 13, (n, 3, 8, 8))
+    if kind == "dense":
+        return rng.integers(-255, 256, (n, 3, 8, 8))
+    # the largest residual on every channel: whole blocks and checkerboards
+    sign = rng.choice([-1, 1], (n, 1, 8, 8))
+    sign[: n // 4] = rng.choice([-1, 1], (n // 4, 1, 1, 1))
+    return np.broadcast_to(255 * sign, (n, 3, 8, 8)).copy()
+
+
+@pytest.mark.parametrize("kind", ["residual", "dense", "extreme"])
+def test_encode_register_passes_equal_dct2_blocks(rng, kind):
+    resid = _residual_blocks(kind, rng)
+    ycc = register_rct(resid)
+    assert ycc.dtype == np.float32
+    want_ycc = inter_cuda.signed_bgr_to_ycc(
+        torch.from_numpy(resid).to(torch.float32))
+    np.testing.assert_array_equal(ycc, want_ycc.numpy())
+    got = register_dct(ycc, dct.dct_matrix_np(8).astype(np.float32))
+    assert got.dtype == np.float32
+    np.testing.assert_array_equal(got, dct.dct2_blocks(want_ycc).numpy())
+
+
+@pytest.mark.parametrize("qf", [1.0, 50.0, 99.0])
+@pytest.mark.parametrize("kind", ["residual", "dense", "extreme"])
+def test_encode_chain_in_thread_ownership_equals_the_plain_coding(rng, kind,
+                                                                  qf):
+    """RCT, passes, true division, round half to even and the packed store
+    against `dct_compress_residual_signed` on the same blocks; quality 1
+    gives tables of 255 throughout, quality 99 tables of 1 and 2."""
+    resid = _residual_blocks(kind, rng, 200)
+    qy, qc = (t.astype(np.float32) for t in quant.quant_tables_np(qf))
+    if qf == 1.0:
+        assert qy.max() == 255 and qc.max() == 255
+    if qf == 99.0:
+        assert qy.min() == 1 and qc.min() == 1
+    z = register_dct(register_rct(resid), dct.dct_matrix_np(8))
+    q = np.rint(z / np.stack([qy, qc, qc])).astype(np.int32)
+    words = pack_int16_pairs(q)                      # [n, 3, 8 rows, 4 words]
+    got = words.view(np.int16).reshape(q.shape)
+    planes = torch.from_numpy(resid).permute(1, 0, 2, 3).reshape(3, -1, 8)
+    want = inter_cuda.dct_compress_residual_signed(planes, qf)
+    np.testing.assert_array_equal(
+        got, want.reshape(3, -1, 8, 8).permute(1, 0, 2, 3).numpy())
+
+
+def test_packed_pairs_keep_the_low_sixteen_bits_of_every_value():
+    """The packed store equals a cast to int16 (which truncates, never
+    saturates) for every int32 the conversion can return in +-70 000, at
+    each of the eight places of a row."""
+    v = np.arange(-70_000, 70_001, dtype=np.int32)
+    v = np.concatenate([v, [-2**31, 2**31 - 1]]).astype(np.int32)
+    v = np.resize(v, (v.size // 8 + 1) * 8)
+    for roll in range(8):
+        row = np.roll(v, roll).reshape(-1, 8)
+        np.testing.assert_array_equal(
+            pack_int16_pairs(row).view(np.int16).reshape(row.shape),
+            row.astype(np.int16))
+
+
+# --- K1: the fast form's addresses and the wrapper's choice of form ------------
+
+
+def _place_origin(o, extent, bs):
+    if o < 0:
+        o += extent
+    return min(max(o, 0), extent - bs)
+
+
+def _load_shifted(words, w, s, nw):
+    """`load_shifted<NW>`: NW words from s bytes into aligned word w; the
+    word after them is read only where the bytes reach into it. A read past
+    the tensor is an IndexError."""
+    assert w >= 0
+    v = [int(words[w + i]) for i in range(nw)] + [int(words[w + nw]) if s
+                                                  else 0]
+    return [_funnel_r(v[i], v[i + 1], 8 * s) for i in range(nw)]
+
+
+def fast_compensate(mv, refs, bs):
+    """K1's fast form, thread by thread: a thread owns 16 output bytes of a
+    block row, places its 16 / bs blocks once, and for every row and channel
+    writes one 16-byte word cut out of aligned source words. `refs` is the
+    whole tensor as one buffer: nothing past it can be read."""
+    g_n, f_n, nbh, nbw, _ = mv.shape
+    _, c_n, h, w = refs.shape
+    words = np.ascontiguousarray(refs).reshape(-1).view(np.uint32)
+    plane = h * w
+    out = np.zeros((g_n, f_n, c_n, h, w), dtype=np.uint8)
+    n_blocks, n_words = 16 // bs, bs // 4
+    for g in range(g_n):
+        for f in range(f_n):
+            for bi in range(nbh):
+                for xq in range(w // 16):
+                    src = []
+                    for b in range(n_blocks):
+                        bj = xq * n_blocks + b
+                        dx, dy = (int(v) for v in mv[g, f, bi, bj])
+                        i0 = _place_origin(bi * bs + dy, h, bs)
+                        j0 = _place_origin(bj * bs + dx, w, bs)
+                        at = g * c_n * plane + i0 * w + j0
+                        src.append((at >> 2, at & 3))
+                    for c in range(c_n):
+                        for r in range(bs):
+                            row = []
+                            for word, s in src:
+                                row += _load_shifted(
+                                    words, word + (c * plane + r * w) // 4, s,
+                                    n_words)
+                            out[g, f, c, bi * bs + r, 16 * xq:16 * xq + 16] = \
+                                np.array(row, dtype=np.uint32).view(np.uint8)
+    return out
+
+
+def _compensate_edge_vectors(rng, g, f, h, w, bs):
+    """Source origins at every byte shift next to each edge (the last row
+    and the last columns of the tensor among them), far outside, and at the
+    int32 extremes."""
+    nbh, nbw = h // bs, w // bs
+    rows = (0, 1, h - bs - 1, h - bs, h - bs + 1, -1, -h - 3, 3 * h)
+    cols = (0, 1, 2, 3, w - bs - 3, w - bs - 2, w - bs - 1, w - bs,
+            w - bs + 1, -1, -bs, -w - 3, 3 * w)
+    cases = [(oj, oi) for oi in rows for oj in cols]
+    n = rng.permutation(g * f * nbh * nbw).reshape(g, f, nbh, nbw)
+    o = np.array(cases, dtype=np.int64)[n % len(cases)]
+    o[..., 0] -= np.arange(nbw) * bs
+    o[..., 1] -= np.arange(nbh)[:, None] * bs
+    o.reshape(-1, 2)[::11] = rng.choice(
+        [-2**31, 2**31 - 1, -2**31 + 5, 2**31 - 9], (o.reshape(-1, 2)[::11]
+                                                      .shape))
+    return o.astype(np.int32)
+
+
+@pytest.mark.parametrize("c", [1, 3])
+@pytest.mark.parametrize("bs,h,w", [(4, 8, 16), (4, 12, 48), (8, 16, 16),
+                                    (8, 24, 48), (16, 16, 16), (16, 32, 48)])
+def test_fast_compensation_words_equal_the_plain_gather(rng, bs, h, w, c):
+    g, f = 2, 8
+    refs = rng.integers(0, 256, (g, c, h, w), dtype=np.uint8)
+    for mv in (_compensate_edge_vectors(rng, g, f, h, w, bs),
+               rng.integers(-3 * w, 3 * w + 1, (g, f, h // bs, w // bs, 2))
+               .astype(np.int32)):
+        want = motion.motion_compensate_plain(
+            torch.from_numpy(mv), torch.from_numpy(refs), bs=bs)
+        got = fast_compensate(mv, refs, bs)   # IndexError = read past the tensor
+        np.testing.assert_array_equal(got, want.numpy())
+
+
+@pytest.mark.parametrize("bs", [4, 8, 16])
+def test_fast_compensation_reads_the_last_row_at_every_byte_shift(rng, bs):
+    """Every block of the only frame reads the last rows of the tensor's last
+    plane, its source starting 0 to bs bytes before the last possible start:
+    the shifts 1, 2, 3 reach into the tensor's last word and not past it."""
+    h, w = bs, 32
+    refs = rng.integers(0, 256, (1, 2, h, w), dtype=np.uint8)
+    for back in range(bs + 1):
+        mv = np.zeros((1, 1, 1, w // bs, 2), dtype=np.int32)
+        mv[..., 0] = (w - bs - back) - np.arange(w // bs) * bs
+        got = fast_compensate(mv, refs, bs)
+        want = np.tile(refs[:, None, :, :, w - bs - back:w - back],
+                       (1, 1, 1, 1, w // bs))
+        np.testing.assert_array_equal(got, want)
+    with pytest.raises(IndexError):       # the emulation does catch an overrun
+        _load_shifted(refs.reshape(-1).view(np.uint32), refs.size // 4 - 1, 1,
+                      1)
+
+
+FAST, GENERAL = motion_cuda.FORM_FAST, motion_cuda.FORM_GENERAL
+
+
+@pytest.mark.parametrize("bs,w,refs_ptr,out_ptr,want", [
+    (8, 1280, 0x7000_0000, 0x7100_0000, FAST),     # reference mode, B luma
+    (4, 640, 0x7000_0000, 0x7100_0000, FAST),      # 4:2:0 B chroma
+    (16, 1280, 0x7000_0000, 0x7100_0000, FAST),
+    (4, 16, 0x7000_0004, 0x7100_0010, FAST),
+    (8, 48, 0x7000_0000, 0x7100_0000, FAST),
+    (8, 1296, 0x7000_0000, 0x7100_0000, FAST),
+    (2, 1280, 0x7000_0000, 0x7100_0000, GENERAL),  # block sizes
+    (6, 1296, 0x7000_0000, 0x7100_0000, GENERAL),
+    (32, 1280, 0x7000_0000, 0x7100_0000, GENERAL),
+    (8, 40, 0x7000_0000, 0x7100_0000, GENERAL),    # rows no multiple of 16
+    (4, 36, 0x7000_0000, 0x7100_0000, GENERAL),
+    (8, 1288, 0x7000_0000, 0x7100_0000, GENERAL),
+    (8, 1280, 0x7000_0001, 0x7100_0000, GENERAL),  # refs off a word
+    (8, 1280, 0x7000_0002, 0x7100_0000, GENERAL),
+    (8, 1280, 0x7000_0003, 0x7100_0000, GENERAL),
+    (8, 1280, 0x7000_0000, 0x7100_0004, GENERAL),  # out off 16 bytes
+    (8, 1280, 0x7000_0000, 0x7100_0008, GENERAL),
+    (16, 1280, 0x7000_0000, 0x7100_0001, GENERAL),
+])
+def test_compensate_form_by_block_size_width_and_alignment(bs, w, refs_ptr,
+                                                           out_ptr, want):
+    assert motion_cuda.compensate_form(bs, w, refs_ptr, out_ptr) == want
+
+
+@pytest.mark.parametrize("form,gf,h,w,bs,fits", [
+    (FAST, 24, 720, 1280, 8, True),
+    (FAST, 70_000, 720, 1280, 8, True),        # frames are not on grid z
+    (GENERAL, 70_000, 720, 1280, 8, False),
+    (GENERAL, 65_535, 720, 1280, 8, True),
+    (GENERAL, 2, 65_536, 16, 8, False),        # pixel rows on grid y
+    (FAST, 2, 65_536, 16, 8, True),
+    (FAST, 1, 32_768, 65_536, 8, False),       # int32 offsets in a plane
+    (GENERAL, 1, 32_768, 65_536, 8, False),
+    (FAST, 2**31, 16, 4096, 4, False),         # more CTAs than grid x has
+])
+def test_compensate_grid_limits(form, gf, h, w, bs, fits):
+    assert motion_cuda.compensate_grid_fits(form, gf, h, w, bs) is fits

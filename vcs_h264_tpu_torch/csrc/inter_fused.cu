@@ -21,42 +21,35 @@
 //           -> round half to even -> + ref_comp -> clip [0, 255] -> uint8.
 // Float arithmetic is IEEE float32 rounded after every operation (explicit
 // __f*_rn intrinsics; the library is also built with --fmad=false), with
-// true division where the plain version divides, so the kernels differ from
-// the plain PyTorch versions only by the order of the 8-term DCT sums.
+// true division where the plain version divides, and each 8-term DCT sum in
+// the order ops/dct.py adds in, so on the card the kernels give what the
+// plain PyTorch versions give.
 //
 // What bounds them on an H100: device-memory traffic. Per pixel and
 // channel, encode reads 1 byte of cur and 1 byte of ref and writes 2 bytes;
 // decode reads 2 + 1 and writes 1. The 16 multiply-adds per output of the
-// two 8-point passes are far below the ALU limit. Design of K3: one thread
-// per pixel (all three channels), 64 threads per block, four neighbouring
-// blocks of one row per CTA so each warp touches contiguous row segments;
-// the row and column DCT passes exchange through shared memory, and nothing
-// but the inputs and the final output touches device memory. K4 has since
-// been rebuilt around wide accesses and register passes: see its own note.
+// two 8-point passes cannot fuse (each product and each sum is rounded), so
+// once the bytes move in wide words the limit is instruction issue: about 80
+// instructions a sample, 35 of them those multiplies and adds and (K3) 11
+// the true division. What the design does about both: a CTA takes a strip
+// of 16 neighbouring blocks of one block row, all three channels; every access to
+// device memory is an aligned word of 8 or 16 bytes (4 for the shifted
+// reference row) in runs of 128 to 256 contiguous bytes a warp; each 8-point
+// pass runs in one thread's registers with D as immediate operands from the
+// kernel's parameters; the passes exchange through one skewed shared buffer
+// free of bank conflicts; nothing but the inputs and the final output
+// touches device memory.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
 #include "block_origin.cuh"
+#include "shifted_rows.cuh"
 
 namespace {
 
 constexpr int kBs = 8;
 constexpr int kPix = kBs * kBs;
-constexpr int kBlocksPerCta = 4;
-
-// tables: [D (64), QY (64), QC (64)] float32
-struct Tables {
-  float d[kPix];
-  float q[2][kPix];
-};
-
-__device__ __forceinline__ void load_tables(Tables& t, const float* __restrict__ tabs, int tid, int nthr) {
-  for (int i = tid; i < 3 * kPix; i += nthr) {
-    if (i < kPix) t.d[i] = tabs[i];
-    else t.q[(i - kPix) / kPix][i % kPix] = tabs[i];
-  }
-}
 
 // Start of the compensated source block.
 __device__ __forceinline__ void source_origin(const int32_t* __restrict__ mv, size_t gf, int nbh,
@@ -67,78 +60,17 @@ __device__ __forceinline__ void source_origin(const int32_t* __restrict__ mv, si
   j0 = place_origin(static_cast<long long>(bj) * kBs + m[0], W, kBs);
 }
 
-// grid (ceil(nbw / 4), nbh, G*F), block (64, 4)
-__global__ void fused_p_encode_kernel(const int32_t* __restrict__ mv,
-                                      const uint8_t* __restrict__ refs,
-                                      const uint8_t* __restrict__ curs,
-                                      const float* __restrict__ tabs,
-                                      int16_t* __restrict__ out,
-                                      int F, int H, int W) {
-  __shared__ Tables t;
-  __shared__ float xa[kBlocksPerCta][3][kPix];
-  __shared__ float xb[kBlocksPerCta][3][kPix];
-  const int p = threadIdx.x, sub = threadIdx.y;
-  load_tables(t, tabs, sub * kPix + p, kPix * kBlocksPerCta);
-
-  const int nbh = H / kBs, nbw = W / kBs;
-  const size_t gf = blockIdx.z;
-  const int g = static_cast<int>(gf / F);
-  const int bi = blockIdx.y, bj = blockIdx.x * kBlocksPerCta + sub;
-  const bool active = bj < nbw;
-  const int py = p / kBs, px = p % kBs;
-  const size_t plane = static_cast<size_t>(H) * W;
-  const int y = bi * kBs + py, x = bj * kBs + px;
-
-  if (active) {
-    int i0, j0;
-    source_origin(mv, gf, nbh, nbw, bi, bj, H, W, i0, j0);
-    const uint8_t* ref = refs + static_cast<size_t>(g) * 3 * plane
-                         + static_cast<size_t>(i0 + py) * W + j0 + px;
-    const uint8_t* cur = curs + gf * 3 * plane + static_cast<size_t>(y) * W + x;
-    const float rb = static_cast<float>(static_cast<int>(cur[0]) - static_cast<int>(ref[0]));
-    const float rg = static_cast<float>(static_cast<int>(cur[plane]) - static_cast<int>(ref[plane]));
-    const float rr = static_cast<float>(static_cast<int>(cur[2 * plane]) - static_cast<int>(ref[2 * plane]));
-    const float yy = __fadd_rn(__fadd_rn(__fmul_rn(0.299f, rr), __fmul_rn(0.587f, rg)),
-                               __fmul_rn(0.114f, rb));
-    xa[sub][0][p] = yy;
-    xa[sub][1][p] = __fmul_rn(__fsub_rn(rr, yy), 0.713f);
-    xa[sub][2][p] = __fmul_rn(__fsub_rn(rb, yy), 0.564f);
-  }
-  __syncthreads();
-  if (active) {
-    // rows: T[i][k] = sum_j D[i][j] X[j][k]
-    for (int c = 0; c < 3; ++c) {
-      float acc = 0.0f;
-      for (int j = 0; j < kBs; ++j)
-        acc = __fadd_rn(acc, __fmul_rn(t.d[py * kBs + j], xa[sub][c][j * kBs + px]));
-      xb[sub][c][p] = acc;
-    }
-  }
-  __syncthreads();
-  if (active) {
-    // columns: Z[i][l] = sum_k T[i][k] D[l][k], then / Q and round
-    int16_t* o = out + gf * 3 * plane + static_cast<size_t>(y) * W + x;
-    for (int c = 0; c < 3; ++c) {
-      float acc = 0.0f;
-      for (int k = 0; k < kBs; ++k)
-        acc = __fadd_rn(acc, __fmul_rn(xb[sub][c][py * kBs + k], t.d[px * kBs + k]));
-      const float qv = t.q[c == 0 ? 0 : 1][p];
-      o[c * plane] = static_cast<int16_t>(__float2int_rn(__fdiv_rn(acc, qv)));
-    }
-  }
-}
-
-// ---- K4: the decode, a strip of blocks to a CTA ---------------------------
+// ---- the strip of blocks a CTA takes, in both directions -------------------
 //
-// Bound by bytes (2 + 1 bytes in and 1 out per sample); what kept the first
-// version at six times that bound was how it moved them: a thread a pixel, so
-// a warp touched four rows of 8 px (half a sector a coefficient load, a
-// quarter a reference load or a store, one byte a thread), 64-thread blocks
-// with three barriers and a table load from device memory each, 48 shared
-// loads a sample in the two passes, and the block's vector read 64 times.
+// What kept the first version of both kernels at six times their byte bound
+// was how it moved the bytes: a thread a pixel, so a warp touched four rows
+// of 8 px (half a sector a coefficient load or store, a quarter a pixel load
+// or store, one or two bytes a thread), 64-thread blocks with two or three
+// barriers and a table load from device memory each, 48 shared loads a
+// sample in the two passes, and the block's vector read 64 times.
 //
 // Here a CTA takes kStrip neighbouring blocks of one block row, all three
-// channels, with one thread per block and row (or column):
+// channels, with one thread per block and row (or column). The decode (K4):
 //   * load: the thread of (block, row) reads its row's 8 coefficients of each
 //     channel as one 16-byte word, so a warp reads two pixel rows of the
 //     strip, 256 contiguous bytes each; it dequantises them and leaves them
@@ -154,18 +86,36 @@ __global__ void fused_p_encode_kernel(const int32_t* __restrict__ mv,
 // slower: fewer CTAs an SM), laid out [k][row][block] with 4 words of skew a
 // k, which makes both sides of both exchanges free of bank conflicts. The
 // reference row starts at any byte: it is cut out of three aligned words
-// with __funnelshift_r. The vector is read once a thread, 8 times a block.
+// with __funnelshift_r (shifted_rows.cuh). The vector is read once a thread,
+// 8 times a block.
 //
 // Every float operation of the first version and its order are kept: each
 // output is acc = 0, acc = acc + d[j] * x[j] for j = 0..7 with every product
 // and sum rounded, then the inverse RCT with true divisions, so the frames
 // are the same bit for bit.
+//
+// The encode (K3) is the same strip run forwards:
+//   * load: the thread of (block, row) reads the 8 bytes of its row of cur
+//     of each channel as one aligned word (a warp reads two runs of 128
+//     contiguous bytes) and the compensated reference row as above, forms
+//     the residual and the RCT of its 8 pixels in registers and leaves
+//     y, cr, cb in the exchange buffer;
+//   * first pass: the thread of (block, column k) forms T[i][k] = sum_j
+//     D[i][j] X[j][k] for i = 0..7;
+//   * second pass: the thread of (block, row i) forms Z[i][l] = sum_k T[i][k]
+//     D[l][k], divides by Q[c][8 i + l] (a true division: a reciprocal
+//     multiply rounds twice and the .5 ties are common), rounds half to even
+//     and stores its row of each channel as one 16-byte word of eight int16,
+//     so a warp writes two runs of 256 contiguous bytes.
+// Its float operations and their order are those of its first version too
+// (a thread a pixel): the RCT's expressions, acc = 0, acc = acc + d * x in
+// ascending j and k, the division, __float2int_rn, the low 16 bits.
 
 constexpr int kStrip = 16;                 // blocks of one block row a CTA takes
 constexpr int kKStride = kBs * kStrip + 4; // words between two k of an exchange buffer
 
-// [D, QY, QC] as the kernel's parameter
-struct DecodeTables {
+// [D, QY, QC] as the kernels' parameter
+struct Tables {
   float d[kPix];
   float q[2][kPix];
 };
@@ -175,25 +125,10 @@ __device__ __forceinline__ int exchange_at(int b, int row, int k) {
   return k * kKStride + row * kStrip + b;
 }
 
-// The 8 bytes that start at p, which may be any byte of a tensor whose own
-// start lies on a 4-byte boundary and whose rows are multiples of 4 long: cut
-// out of the aligned words around them. The third word is read only where
-// the bytes reach into it, so nothing past the 8 bytes' last word is touched.
-__device__ __forceinline__ uint2 load_row8(const uint8_t* p) {
-  const unsigned s = static_cast<unsigned>(reinterpret_cast<uintptr_t>(p) & 3u);
-  const uint32_t* w = reinterpret_cast<const uint32_t*>(p - s);
-  const uint32_t a = w[0], b = w[1], c = s ? w[2] : 0u;
-  return make_uint2(__funnelshift_r(a, b, 8 * s), __funnelshift_r(b, c, 8 * s));
-}
-
-__device__ __forceinline__ int byte_at(uint2 v, int k) {
-  return static_cast<int>(((k < 4 ? v.x : v.y) >> (8 * (k & 3))) & 255u);
-}
-
 // grid (ceil(nbw / kStrip), nbh, G*F), block (kStrip * kBs)
 __global__ void __launch_bounds__(kStrip * kBs) fused_p_decode_kernel(
     const int32_t* __restrict__ mv, const uint8_t* __restrict__ refs,
-    const int16_t* __restrict__ coeffs, const __grid_constant__ DecodeTables t,
+    const int16_t* __restrict__ coeffs, const __grid_constant__ Tables t,
     uint8_t* __restrict__ out, int F, int H, int W) {
   __shared__ float xs[3][kBs * kKStride];
   const int tid = threadIdx.x;
@@ -299,36 +234,139 @@ __global__ void __launch_bounds__(kStrip * kBs) fused_p_decode_kernel(
   }
 }
 
-}  // namespace
+// grid (ceil(nbw / kStrip), nbh, G*F), block (kStrip * kBs)
+__global__ void __launch_bounds__(kStrip * kBs) fused_p_encode_kernel(
+    const int32_t* __restrict__ mv, const uint8_t* __restrict__ refs,
+    const uint8_t* __restrict__ curs, const __grid_constant__ Tables t,
+    int16_t* __restrict__ out, int F, int H, int W) {
+  __shared__ float xs[3][kBs * kKStride];
+  const int tid = threadIdx.x;
+  const int nbh = H / kBs, nbw = W / kBs;
+  const size_t gf = blockIdx.z;
+  const int g = static_cast<int>(gf / F);
+  const int bi = blockIdx.y, bj0 = blockIdx.x * kStrip;
+  const size_t plane = static_cast<size_t>(H) * W;
 
-extern "C" int vcs_fused_p_encode(const void* mv, const void* refs, const void* curs,
-                                  const void* tabs, void* out, int G, int F, int H, int W,
-                                  void* stream) {
-  dim3 grid((W / kBs + kBlocksPerCta - 1) / kBlocksPerCta, H / kBs, G * F);
-  dim3 block(kPix, kBlocksPerCta);
-  fused_p_encode_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int32_t*>(mv), static_cast<const uint8_t*>(refs),
-      static_cast<const uint8_t*>(curs), static_cast<const float*>(tabs),
-      static_cast<int16_t*>(out), F, H, W);
-  return static_cast<int>(cudaGetLastError());
+  // as (block, row): tid = row * kStrip + block, for the load, the second
+  // pass and the store
+  const int blk = tid % kStrip, row = tid / kStrip;
+  const bool r_active = bj0 + blk < nbw;
+  const size_t at = static_cast<size_t>(bi * kBs + row) * W + static_cast<size_t>(bj0 + blk) * kBs;
+  if (r_active) {
+    const uint8_t* cp = curs + gf * 3 * plane + at;
+    uint2 cur[3], ref[3];
+#pragma unroll
+    for (int c = 0; c < 3; ++c) cur[c] = *reinterpret_cast<const uint2*>(cp + c * plane);
+    int i0, j0;
+    source_origin(mv, gf, nbh, nbw, bi, bj0 + blk, H, W, i0, j0);
+    const uint8_t* rp = refs + static_cast<size_t>(g) * 3 * plane + static_cast<size_t>(i0 + row) * W + j0;
+#pragma unroll
+    for (int c = 0; c < 3; ++c) ref[c] = load_row8(rp + c * plane);
+#pragma unroll
+    for (int k = 0; k < kBs; ++k) {
+      const float rb = static_cast<float>(byte_at(cur[0], k) - byte_at(ref[0], k));
+      const float rg = static_cast<float>(byte_at(cur[1], k) - byte_at(ref[1], k));
+      const float rr = static_cast<float>(byte_at(cur[2], k) - byte_at(ref[2], k));
+      const float yy = __fadd_rn(__fadd_rn(__fmul_rn(0.299f, rr), __fmul_rn(0.587f, rg)),
+                                 __fmul_rn(0.114f, rb));
+      const int e = exchange_at(blk, row, k);
+      xs[0][e] = yy;
+      xs[1][e] = __fmul_rn(__fsub_rn(rr, yy), 0.713f);
+      xs[2][e] = __fmul_rn(__fsub_rn(rb, yy), 0.564f);
+    }
+  }
+  __syncthreads();
+  {
+    // as (block, column): tid = block * kBs + k. T[i][k] = sum_j D[i][j] X[j][k],
+    // formed in registers and put back where X was once every thread has read
+    const int cb = tid / kBs, k = tid % kBs;
+    const bool c_active = bj0 + cb < nbw;
+    float tt[3][kBs];
+    if (c_active) {
+#pragma unroll
+      for (int c = 0; c < 3; ++c) {
+        float x[kBs];
+#pragma unroll
+        for (int j = 0; j < kBs; ++j) x[j] = xs[c][exchange_at(cb, j, k)];
+#pragma unroll
+        for (int i = 0; i < kBs; ++i) {
+          float acc = 0.0f;
+#pragma unroll
+          for (int j = 0; j < kBs; ++j) acc = __fadd_rn(acc, __fmul_rn(t.d[i * kBs + j], x[j]));
+          tt[c][i] = acc;
+        }
+      }
+    }
+    __syncthreads();
+    if (c_active) {
+#pragma unroll
+      for (int c = 0; c < 3; ++c)
+#pragma unroll
+        for (int i = 0; i < kBs; ++i) xs[c][exchange_at(cb, i, k)] = tt[c][i];
+    }
+  }
+  __syncthreads();
+  if (r_active) {
+    // Z[i][l] = sum_k T[i][k] D[l][k], i = row; then / Q, round, and the low
+    // 16 bits of each of the row's eight values, two to a word
+    int16_t* o = out + gf * 3 * plane + at;
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      float x[kBs];
+#pragma unroll
+      for (int k = 0; k < kBs; ++k) x[k] = xs[c][exchange_at(blk, row, k)];
+      uint32_t packed[kBs / 2];
+#pragma unroll
+      for (int l = 0; l < kBs; ++l) {
+        float acc = 0.0f;
+#pragma unroll
+        for (int k = 0; k < kBs; ++k) acc = __fadd_rn(acc, __fmul_rn(x[k], t.d[l * kBs + k]));
+        const uint32_t v = static_cast<uint32_t>(
+            __float2int_rn(__fdiv_rn(acc, t.q[c == 0 ? 0 : 1][row * kBs + l]))) & 0xffffu;
+        packed[l >> 1] = (l & 1) ? (packed[l >> 1] | (v << 16)) : v;
+      }
+      *reinterpret_cast<uint4*>(o + c * plane) = make_uint4(packed[0], packed[1], packed[2], packed[3]);
+    }
+  }
 }
 
-// tabs_host: the 192 floats [D, QY, QC] in host memory; they travel as the
-// kernel's parameter. coeffs must start on a 16-byte boundary, out on an 8-byte
-// and refs on a 4-byte one (the wrapper checks).
-extern "C" int vcs_fused_p_decode(const void* mv, const void* refs, const void* coeffs,
-                                  const void* tabs_host, void* out, int G, int F, int H, int W,
-                                  void* stream) {
-  DecodeTables t;
+}  // namespace
+
+// The 192 floats [D, QY, QC] in host memory, as the kernels' parameter.
+static Tables tables_from_host(const void* tabs_host) {
+  Tables t;
   const float* tabs = static_cast<const float*>(tabs_host);
   for (int i = 0; i < kPix; ++i) {
     t.d[i] = tabs[i];
     t.q[0][i] = tabs[kPix + i];
     t.q[1][i] = tabs[2 * kPix + i];
   }
+  return t;
+}
+
+// enc_tabs_host: the 192 floats [D, QY, QC] in host memory; they travel as
+// the kernel's parameter. curs must start on an 8-byte boundary, out on a
+// 16-byte and refs on a 4-byte one (the wrapper checks).
+extern "C" int vcs_fused_p_encode(const void* mv, const void* refs, const void* curs,
+                                  const void* enc_tabs_host, void* out, int G, int F, int H,
+                                  int W, void* stream) {
+  dim3 grid((W / kBs + kStrip - 1) / kStrip, H / kBs, G * F);
+  fused_p_encode_kernel<<<grid, kStrip * kBs, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int32_t*>(mv), static_cast<const uint8_t*>(refs),
+      static_cast<const uint8_t*>(curs), tables_from_host(enc_tabs_host),
+      static_cast<int16_t*>(out), F, H, W);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// tabs_host: as above. coeffs must start on a 16-byte boundary, out on an
+// 8-byte and refs on a 4-byte one (the wrapper checks).
+extern "C" int vcs_fused_p_decode(const void* mv, const void* refs, const void* coeffs,
+                                  const void* tabs_host, void* out, int G, int F, int H, int W,
+                                  void* stream) {
   dim3 grid((W / kBs + kStrip - 1) / kStrip, H / kBs, G * F);
   fused_p_decode_kernel<<<grid, kStrip * kBs, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int32_t*>(mv), static_cast<const uint8_t*>(refs),
-      static_cast<const int16_t*>(coeffs), t, static_cast<uint8_t*>(out), F, H, W);
+      static_cast<const int16_t*>(coeffs), tables_from_host(tabs_host),
+      static_cast<uint8_t*>(out), F, H, W);
   return static_cast<int>(cudaGetLastError());
 }

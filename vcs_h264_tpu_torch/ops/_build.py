@@ -40,13 +40,15 @@ SIGNATURES = {
     # curs, refs, mv_out, G, F, C, H, W, bs, reach, step, static_threshold,
     # stream
     "vcs_sad_search": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),
-    # mv, refs, curs, tables, coeffs_out, G, F, H, W, stream
+    # mv, refs, curs, tables (in HOST memory: they become the kernel's
+    # parameter), coeffs_out, G, F, H, W, stream
     "vcs_fused_p_encode": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
-    # mv, refs, coeffs, tables (in HOST memory: they become the kernel's
-    # parameter), frames_out, G, F, H, W, stream
+    # mv, refs, coeffs, tables (in host memory too), frames_out, G, F, H, W,
+    # stream
     "vcs_fused_p_decode": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     # the bare-plane pairs, luma (C = 1) and 4:2:0 chroma (C = 2): as the
-    # two above, H and W being the plane's own
+    # two above with the tables in DEVICE memory, H and W being the plane's
+    # own
     "vcs_plane_encode": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     "vcs_plane_decode": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     "vcs_c420_encode": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
@@ -58,8 +60,9 @@ SIGNATURES = {
     # res, modes, escape, out, scratch (int16 like res, or null: see the
     # source), N, H, W, qstep, clip, stream
     "vcs_intra_decode": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
-    # mv, refs, out, G, F, C, H, W, bs, stream
-    "vcs_compensate": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    # mv, refs, out, G, F, C, H, W, bs, form (motion_cuda.compensate_form),
+    # stream
+    "vcs_compensate": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
 }
 
 _lock = threading.Lock()

@@ -141,8 +141,9 @@ def decode_c420_frames_plain(mv_c, c_refs, coeffs, qf: float) -> torch.Tensor:
 
 @functools.lru_cache(maxsize=None)
 def _tables_np(qf: float) -> np.ndarray:
-    """[D, QY, QC] float32, 192 values in host memory (cached: K4 takes
-    them from there as its kernel's parameter, so the array must live)."""
+    """[D, QY, QC] float32, 192 values in host memory (cached: K3 and K4
+    take them from there as their kernels' parameter, so the array must
+    live)."""
     qy, qc = quant_tables_np(qf)
     return np.concatenate([dct_matrix_np(BS).astype(np.float32).ravel(),
                            qy.astype(np.float32).ravel(),
@@ -151,8 +152,8 @@ def _tables_np(qf: float) -> np.ndarray:
 
 @functools.lru_cache(maxsize=None)
 def _tables(qf: float, device: torch.device) -> torch.Tensor:
-    """The same 192 values on the device: the other kernels' constant
-    operands, uploaded once per quality factor."""
+    """The same 192 values on the device: the bare-plane kernels' and K7's
+    constant operands, uploaded once per quality factor."""
     return torch.from_numpy(_tables_np(qf)).to(device)
 
 
@@ -189,13 +190,19 @@ def _check_aligned(name: str, arg: str, t: torch.Tensor, align: int) -> None:
                          "boundary")
 
 
+# What the strip kernels' wide accesses need, (operand, bytes) each: 16-byte
+# loads or stores of int16 rows, 8-byte ones of uint8 rows, reference rows
+# cut out of aligned 4-byte words.
+_ALIGNMENTS = {
+    "fused_p_encode": (("curs", 8), ("refs", 4), ("out", 16)),
+    "fused_p_decode": (("coeffs", 16), ("refs", 4), ("out", 8)),
+}
+
+
 def _launch(entry: str, counter: str, mv, refs, data, qf, out):
     lib = _build.load_library()
-    if counter == "fused_p_decode":
-        # 16-byte coefficient loads, 8-byte stores, reference rows cut out
-        # of aligned 4-byte words
-        for arg, t, align in (("coeffs", data, 16), ("refs", refs, 4),
-                              ("out", out, 8)):
+    if counter in _ALIGNMENTS:
+        for (arg, align), t in zip(_ALIGNMENTS[counter], (data, refs, out)):
             _check_aligned(counter, arg, t, align)
         tabs_ptr = _tables_np(float(qf)).ctypes.data
     else:

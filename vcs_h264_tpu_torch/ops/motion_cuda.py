@@ -62,10 +62,43 @@ def sad_search(curs: torch.Tensor, refs: torch.Tensor, *, bs: int = 8,
     return out
 
 
-def compensate(mv: torch.Tensor, refs: torch.Tensor, *, bs: int) -> torch.Tensor:
+# The forms of K1 (`csrc/motion_comp.cu`), as its C entry point takes them.
+FORM_GENERAL, FORM_FAST = 0, 1
+_GRID_X, _GRID_YZ = 2**31 - 1, 65535          # CUDA's grid limits
+_FAST_THREADS, _FAST_BYTES = 256, 16          # a CTA; output bytes a thread
+
+
+def compensate_form(bs: int, w: int, refs_ptr: int, out_ptr: int) -> int:
+    """Which kernel K1 launches: the fast form (16-byte stores, source rows
+    cut out of aligned 4-byte words) takes block sizes 4, 8 and 16 on rows
+    that are multiples of 16 bytes, with refs on a 4-byte and out on a
+    16-byte boundary; the general form takes everything else."""
+    fast = (bs in (4, 8, 16) and w % _FAST_BYTES == 0 and refs_ptr % 4 == 0
+            and out_ptr % _FAST_BYTES == 0)
+    return FORM_FAST if fast else FORM_GENERAL
+
+
+def compensate_grid_fits(form: int, gf: int, h: int, w: int, bs: int) -> bool:
+    """Whether the form's grid can be launched: the fast form flattens its
+    work items (a 16-byte column of a block row of a frame) over grid x,
+    the general form puts the frames on z, the pixel rows on y."""
+    if h * w >= 2**31:                         # int32 offsets within a plane
+        return False
+    if form == FORM_FAST:
+        items = gf * (h // bs) * (w // _FAST_BYTES)
+        return -(-items // _FAST_THREADS) <= _GRID_X
+    return gf <= _GRID_YZ and h <= _GRID_YZ
+
+
+def compensate(mv: torch.Tensor, refs: torch.Tensor, *, bs: int,
+               form: int | None = None,
+               out: torch.Tensor | None = None) -> torch.Tensor:
     """K1 on the card: mv int32 [G, F, nbh, nbw, 2] (dx, dy), refs uint8
     [G, C, H, W], both contiguous on one CUDA device -> compensated frames
-    uint8 [G, F, C, H, W]. Any vector; bs >= 2 dividing H and W."""
+    uint8 [G, F, C, H, W]. Any vector; bs >= 2 dividing H and W. `form`
+    None: as `compensate_form` chooses; FORM_GENERAL asks for the general
+    form where the fast one would do. `out`: a contiguous uint8 tensor of
+    the result's shape to write into instead of a new one."""
     operands = (("mv", mv, torch.int32, 5), ("refs", refs, torch.uint8, 4))
     for name, t, dt, nd in operands:
         if t.dtype != dt or t.ndim != nd or not t.is_contiguous():
@@ -89,15 +122,28 @@ def compensate(mv: torch.Tensor, refs: torch.Tensor, *, bs: int) -> torch.Tensor
     if g == 0 or f == 0 or c == 0:
         raise ValueError("compensate: needs at least one GOP, frame and "
                          "channel")
-    if g * f > 65535 or h > 65535 or h * w >= 2**31:
+    if out is None:
+        out = torch.empty((g, f, c, h, w), dtype=torch.uint8,
+                          device=refs.device)
+    elif out.dtype != torch.uint8 or tuple(out.shape) != (g, f, c, h, w) \
+            or out.device != refs.device or not out.is_contiguous():
+        raise ValueError(f"compensate: out must be contiguous uint8 "
+                         f"{(g, f, c, h, w)} on {refs.device}")
+    chosen = compensate_form(bs, w, refs.data_ptr(), out.data_ptr())
+    if form is None:
+        form = chosen
+    elif form not in (FORM_GENERAL, chosen):
+        raise ValueError(f"compensate: the fast form does not take bs {bs}, "
+                         f"width {w} or these operands' alignment")
+    if not compensate_grid_fits(form, g * f, h, w, bs):
         raise ValueError(f"compensate: grid too large for G*F={g * f}, "
                          f"{h}x{w}")
     lib = _build.load_library()
-    out = torch.empty((g, f, c, h, w), dtype=torch.uint8, device=refs.device)
     with torch.cuda.device(refs.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.vcs_compensate(mv.data_ptr(), refs.data_ptr(),
-                                 out.data_ptr(), g, f, c, h, w, bs, stream)
+                                 out.data_ptr(), g, f, c, h, w, bs, form,
+                                 stream)
     _build.check(err, "compensate")
     LAUNCHES["compensate"] += 1
     return out
