@@ -4,12 +4,13 @@
     python3 chip_smoke.py [--seed N]
     python3 chip_smoke.py --profile     # device time by kernel, per path
     python3 chip_smoke.py --earlier DIR # also build an earlier version of
-                                        # K1 to K6 (DIR holds its
+                                        # K1 to K7 (DIR holds its
                                         # motion_comp.cu, motion_sad.cu,
-                                        # intra_wavefront.cu, inter_fused.cu
-                                        # + their .cuh headers, or some of
-                                        # them), hold today's kernels
-                                        # identical to it, time it
+                                        # intra_wavefront.cu, inter_fused.cu,
+                                        # inter_plane.cu + their .cuh
+                                        # headers, or some of them), hold
+                                        # today's kernels identical to it,
+                                        # time it
 
 Run from the root of a checkout: it builds the CUDA kernels from
 `vcs_h264_tpu_torch/csrc/` with nvcc and imports nothing of JAX or of the JAX
@@ -64,10 +65,14 @@ package. Phases, each of which exits nonzero on failure:
         planes of the 4:2:0 B path and at bs 16;
      g. the bare-plane kernels (the C = 1 case of K3/K4 on a luma plane,
         motion cells of 8 px; K7 on two chroma planes, cells of 4 px) at
-        edge shapes: planes of 8x8, one strip row, widths that are not
-        multiples of 32; vectors that are odd, negative and up to three
-        extents outside every edge; all-zero vector rows: identical to the
-        plain versions. K2 at C = 1 at an edge shape: vectors identical;
+        edge shapes: planes of 8x8, one block row, widths 8 to 264 around
+        their strips of 16 blocks; vectors that are odd, negative, up to
+        three extents outside every edge and at the int32 extremes; all-zero
+        vector rows; frames of random bytes and of 0 and 255 only; quality
+        factors 50, 1 and 99; coefficients as coded and at +-32767:
+        identical to the plain versions; an operand off the boundary its
+        wide accesses need refused with ValueError. K2 at C = 1 at an edge
+        shape: vectors identical;
      h. the 4:2:0 shapes, G=8, F=3: K2 at C = 1 on the clip's 720x1280 luma
         (threshold 2000 // 3), plane_encode / plane_decode on it,
         c420_encode / c420_decode on the 2x360x640 chroma planes with the
@@ -122,10 +127,12 @@ operands; all main shapes) and the general form. The `sad_search` entry's
 one byte off a word boundary, and the `compensate` entry's is the general
 form there, asked for by `form=`; with --earlier they are the earlier
 build's times, as are those of `intra_encode`, `intra_decode`,
-`fused_p_encode` and `fused_p_decode` (null without). The six entries carry
+`fused_p_encode`, `fused_p_decode`, `plane_encode`, `plane_decode`,
+`c420_encode` and `c420_decode` (null without). All ten entries carry
 "redesigned": true, the kernels rebuilt since their first version; under
---earlier each of them, at every main shape and (K1, K3, K4, K6) every edge
-shape, is first held identical to the earlier build.
+--earlier each of them, at every main shape and (K1, K3, K4, K6, the
+bare-plane pair, K7) every edge shape, is first held identical to the
+earlier build.
 `intra_encode` and `intra_decode` carry "steps", the length of the chain
 of dependent diagonals at the timed shape.
 
@@ -308,11 +315,13 @@ EARLIER = None      # ctypes library of an earlier build of the kernels (--earli
 # its source: vcs_intra_encode with the quantiser's magic and shift,
 # vcs_intra_decode with a scratch plane, vcs_fused_p_decode and
 # vcs_fused_p_encode with their tables in host memory, vcs_compensate with
-# the form chosen by its caller
+# the form chosen by its caller, the bare-plane pairs (vcs_plane_* and
+# vcs_c420_*) as strips of dct_strip.cuh with their tables in host memory
 EARLIER_HAS = {"magic": False, "scratch": False, "tabs_host": False,
-               "enc_tabs_host": False, "int form": False}
+               "enc_tabs_host": False, "int form": False,
+               "dct_strip.cuh": False}
 EARLIER_SOURCES = ("motion_sad.cu", "intra_wavefront.cu", "inter_fused.cu",
-                   "motion_comp.cu")
+                   "motion_comp.cu", "inter_plane.cu")
 
 
 def load_earlier(src_dir: str) -> None:
@@ -341,7 +350,8 @@ def load_earlier(src_dir: str) -> None:
                       ("scratch", "intra_wavefront.cu"),
                       ("tabs_host", "inter_fused.cu"),
                       ("enc_tabs_host", "inter_fused.cu"),
-                      ("int form", "motion_comp.cu")):
+                      ("int form", "motion_comp.cu"),
+                      ("dct_strip.cuh", "inter_plane.cu")):
         path = os.path.join(src_dir, name)
         if path in srcs:
             with open(path) as f:
@@ -356,8 +366,8 @@ def load_earlier(src_dir: str) -> None:
         lib.vcs_intra_decode.argtypes = (
             list(_build.SIGNATURES["vcs_intra_decode"])
             if EARLIER_HAS["scratch"] else [p, p, p, p, i, i, i, i, i, p])
-    if hasattr(lib, "vcs_fused_p_decode"):
-        for entry in ("vcs_fused_p_decode", "vcs_fused_p_encode"):
+    for entry, _, _, _ in CODED.values():
+        if hasattr(lib, entry):     # pointers and ints, whatever the version
             getattr(lib, entry).argtypes = list(_build.SIGNATURES[entry])
     if hasattr(lib, "vcs_compensate"):
         lib.vcs_compensate.argtypes = (
@@ -391,30 +401,41 @@ def earlier_intra_decode(res, modes, esc, qstep: int, clip: bool):
     return run
 
 
-# the fused pair of the earlier build: (entry point, the word of its source
-# that says its tables come from host memory, output type, wrapper, name)
-FUSED = {"encode": ("vcs_fused_p_encode", "enc_tabs_host", "int16",
-                    "fused_p_encode", "K3"),
-         "decode": ("vcs_fused_p_decode", "tabs_host", "uint8",
-                    "fused_p_decode", "K4")}
+# the coded pairs, each by its wrapper and launch counter in inter_cuda:
+# (entry point, the word of its source that says the earlier build takes
+# its tables from host memory, output type, name)
+CODED = {"fused_p_encode": ("vcs_fused_p_encode", "enc_tabs_host", "int16",
+                            "K3"),
+         "fused_p_decode": ("vcs_fused_p_decode", "tabs_host", "uint8", "K4"),
+         "plane_encode": ("vcs_plane_encode", "dct_strip.cuh", "int16",
+                          "bare-plane K3"),
+         "plane_decode": ("vcs_plane_decode", "dct_strip.cuh", "uint8",
+                          "bare-plane K4"),
+         "c420_encode": ("vcs_c420_encode", "dct_strip.cuh", "int16",
+                         "K7 encode"),
+         "c420_decode": ("vcs_c420_decode", "dct_strip.cuh", "uint8",
+                         "K7 decode")}
 
 
-def earlier_fused(which: str, mv, refs, data, qf: float):
-    """A function that runs the earlier build's K3 (`which` "encode", data
-    the frames) or K4 ("decode", data the coefficients) on these operands
-    and returns its output tensor."""
+def earlier_fused(name: str, mv, refs, data, qf: float):
+    """A function that runs the earlier build's kernel behind the wrapper
+    `name` of `CODED` (an encode takes the frames as data, a decode the
+    coefficients) on these operands and returns its output tensor."""
     import torch
     from vcs_h264_tpu_torch.ops import inter_cuda
-    entry, host_key, dtype, _, kernel = FUSED[which]
+    entry, host_key, dtype, kernel = CODED[name]
     g, f, _, h, w = data.shape
     out = torch.empty(data.shape, dtype=getattr(torch, dtype),
                       device=data.device)
-    tabs = (inter_cuda._tables_np(float(qf)).ctypes.data
-            if EARLIER_HAS[host_key]
-            else inter_cuda._tables(float(qf), data.device).data_ptr())
+    # [D, QY, QC] in host memory, or uploaded for a build from before the
+    # tables became the kernels' parameter
+    host = inter_cuda._tables_np(float(qf))
+    dev = None if EARLIER_HAS[host_key] else torch.from_numpy(host).to(
+        data.device)
     stream = torch.cuda.current_stream().cuda_stream
 
     def run():
+        tabs = host.ctypes.data if dev is None else dev.data_ptr()
         err = getattr(EARLIER, entry)(
             mv.data_ptr(), refs.data_ptr(), data.data_ptr(), tabs,
             out.data_ptr(), g, f, h, w, stream)
@@ -462,18 +483,17 @@ def earlier_decode_ms(res, modes, esc, qstep: int, clip: bool, what: str):
     return kernel_ms(run)
 
 
-def earlier_fused_ms(which: str, mv, refs, data, qf: float, what: str):
-    """The earlier build's K3 or K4 (`earlier_fused`) on these operands: its
-    time, after holding its output identical to today's kernel; None
-    without --earlier."""
+def earlier_fused_ms(name: str, mv, refs, data, qf: float, what: str):
+    """The earlier build's kernel behind the wrapper `name`
+    (`earlier_fused`) on these operands: its time, after holding its output
+    identical to today's kernel; None without --earlier."""
     import torch
     from vcs_h264_tpu_torch.ops import inter_cuda
-    entry, _, _, wrapper, kernel = FUSED[which]
+    entry, _, _, kernel = CODED[name]
     if not earlier_has(entry):
         return None
-    run = earlier_fused(which, mv, refs, data, qf)
-    if not torch.equal(run(), getattr(inter_cuda, wrapper)(mv, refs, data,
-                                                           qf)):
+    run = earlier_fused(name, mv, refs, data, qf)
+    if not torch.equal(run(), getattr(inter_cuda, name)(mv, refs, data, qf)):
         fail(f"the earlier {kernel} build disagrees with today's kernel "
              f"({what})")
     return kernel_ms(run)
@@ -609,17 +629,18 @@ FUSED_EDGE_SHAPES = ((1, 1, 8, 8), (2, 1, 16, 24), (1, 2, 8, 136),
                      (1, 3, 24, 120), (2, 2, 16, 128), (1, 1, 40, 264))
 
 
-def fused_edge_vectors(rng, g, f, h, w):
-    """Three named sets of vectors for K3's and K4's edge shapes: in reach,
-    with source origins before the top and left edges, and up to three
-    extents outside with every seventh value at an int32 extreme."""
-    shape = (g, f, h // 8, w // 8, 2)
+def fused_edge_vectors(rng, g, f, h, w, cell=8):
+    """Three named sets of vectors on `cell`-pixel motion cells for the edge
+    shapes of K3, K4 and their bare-plane pairs: in reach, with source
+    origins before the top and left edges, and up to three extents outside
+    with every seventh value at an int32 extreme."""
+    shape = (g, f, h // cell, w // cell, 2)
     ext = 3 * max(h, w)
     far = rng.integers(-ext, ext + 1, shape)
     far.reshape(-1)[::7] = rng.choice(
         [-2**31, 2**31 - 1, -2**31 + 5, 2**31 - 9], far.reshape(-1)[::7].size)
     return (("in reach", rng.integers(-16, 17, shape)),
-            ("before the edges", edge_vectors(g, f, h, w)),
+            ("before the edges", edge_vectors(g, f, h, w, cell)),
             ("far outside", far))
 
 
@@ -658,7 +679,8 @@ def fused_decode_edge_phase() -> None:
                          f"{what}, coefficients {kind}: max {int(d.max())}, "
                          f"{int((d != 0).sum())} values")
                 if earlier_has("vcs_fused_p_decode") and not torch.equal(
-                        earlier_fused("decode", mv, refs, co, 50.0)(), got):
+                        earlier_fused("fused_p_decode", mv, refs, co,
+                                      50.0)(), got):
                     fail(f"K4 differs from the earlier build at "
                          f"{(g, f, h, w)}, vectors {what}, coefficients "
                          f"{kind}")
@@ -707,7 +729,8 @@ def fused_encode_edge_phase() -> None:
                              f"max {int(d.max())}, {int((d != 0).sum())} "
                              "values")
                     if earlier_has("vcs_fused_p_encode") and not torch.equal(
-                            earlier_fused("encode", mv, refs, curs, qf)(), got):
+                            earlier_fused("fused_p_encode", mv, refs, curs,
+                                          qf)(), got):
                         fail(f"K3 differs from the earlier build at "
                              f"{(g, f, h, w)}, vectors {what}, frames {kind}, "
                              f"quality {qf}")
@@ -1171,13 +1194,15 @@ def kernel_phase(frames, card: str):
             fail(f"K4 pixels outside the bound ({name} mv)")
         enc_err, dec_err = max(enc_err, e_max), max(dec_err, p_max)
         if name == "random":      # the searched vectors' turn comes below
-            earlier_fused_ms("decode", mv, refs, co_p, qf, "random vectors")
-            earlier_fused_ms("encode", mv, refs, curs, qf, "random vectors")
+            earlier_fused_ms("fused_p_decode", mv, refs, co_p, qf,
+                             "random vectors")
+            earlier_fused_ms("fused_p_encode", mv, refs, curs, qf,
+                             "random vectors")
 
     co = inter_cuda.encode_p_coeffs_plain(mv_p, refs, curs, qf)
     results["fused_p_encode"] = dict(
         max_abs_err=enc_err, redesigned=True,
-        earlier_ms=earlier_fused_ms("encode", mv_p, refs, curs, qf,
+        earlier_ms=earlier_fused_ms("fused_p_encode", mv_p, refs, curs, qf,
                                     "searched vectors"),
         ms=kernel_ms(lambda: inter_cuda.fused_p_encode(mv_p, refs, curs, qf)),
         plain_ms=time_ms(lambda: inter_cuda.encode_p_coeffs_plain(
@@ -1185,7 +1210,7 @@ def kernel_phase(frames, card: str):
         **coded_bound(mv_p, refs, curs, co, True), library_ms=None)
     results["fused_p_decode"] = dict(
         max_abs_err=dec_err, redesigned=True,
-        earlier_ms=earlier_fused_ms("decode", mv_p, refs, co, qf,
+        earlier_ms=earlier_fused_ms("fused_p_decode", mv_p, refs, co, qf,
                                     "searched vectors"),
         ms=kernel_ms(lambda: inter_cuda.fused_p_decode(mv_p, refs, co, qf)),
         plain_ms=time_ms(lambda: inter_cuda.decode_p_frames_plain(
@@ -1389,57 +1414,142 @@ def compensate_kernel_phase(frames, card: str):
     return {"compensate": out["P"]}
 
 
+def plane_vectors(rng, g, f, h, w, cell):
+    """The named vector sets of `plane_edge_phase` on `cell`-pixel cells:
+    those of `fused_edge_vectors`; random ones up to three extents long
+    (odd and negative among them) with all-zero vector rows; and source
+    origins at -1, -3, -cell, -extent - 3, extent - cell + 1, extent and
+    3 * extent on each axis."""
+    nh, nw = h // cell, w // cell
+    ext = 3 * max(h, w)
+    mv_r = rng.integers(-ext, ext + 1, (g, f, nh, nw, 2))
+    mv_r[:, :, ::2] = 0                      # all-zero vector rows
+    cases = [(oj, oi)
+             for oi in (-1, -3, -cell, -h - 3, h - cell + 1, h, 3 * h, 0)
+             for oj in (-1, -3, -cell, -w - 3, w - cell + 1, w, 3 * w, 0)]
+    n = np.arange(g * f * nh * nw).reshape(g, f, nh, nw)
+    mv_e = np.array(cases)[n % len(cases)]
+    mv_e[..., 0] -= np.arange(nw) * cell
+    mv_e[..., 1] -= np.arange(nh)[:, None] * cell
+    return fused_edge_vectors(rng, g, f, h, w, cell) + (
+        ("random with zero rows", mv_r), ("at the edges", mv_e))
+
+
+def shifted_copy(t, elements: int = 1):
+    """A contiguous copy of `t` that starts `elements` of its elements after
+    the allocator's boundary (one byte for uint8)."""
+    import torch
+    buf = torch.empty(t.numel() + elements, dtype=t.dtype, device=t.device)
+    out = buf[elements:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
 def plane_edge_phase() -> None:
     """Phase 3g: the bare-plane kernels vs their plain versions at small
-    shapes, identical: the luma pair (C 1, motion cells of 8) and the chroma
-    pair (C 2, cells of 4) on planes of 8x8, one strip row, widths that are
-    not multiples of 32 and partial CTAs; random vectors up to three extents
-    long (odd and negative among them), vectors whose source origins fall
-    at -1, -3, -cell, -extent - 3, extent - cell + 1, extent and 3 * extent
-    on each axis, and all-zero vector rows. Then K2 at C = 1 against the
-    plain search at the threshold 2000 // 3."""
+    shapes, identical; with --earlier also identical to the earlier build.
+    The luma pair (C 1, motion cells of 8) and the chroma pair (C 2, cells
+    of 4) on planes of 8x8, one block row, widths 8 to 264 around the strip
+    of 16 blocks (`FUSED_EDGE_SHAPES`) and partial strips; the vectors of
+    `plane_vectors` (in reach, before the edges, up to three extents outside
+    and at the int32 extremes, random with all-zero rows, at the edges);
+    frames of random bytes and frames of 0 and 255 only; qualities 50, 1
+    and 99; the decode on the coefficients as coded and at +-32767. Each
+    wrapper refuses an operand off the boundary its wide accesses need
+    (`inter_cuda._ALIGNMENTS`) with ValueError before any launch. Then K2
+    at C = 1 against the plain search at the threshold 2000 // 3."""
     import torch
     from vcs_h264_tpu_torch.ops import inter_cuda, motion, motion_cuda
 
     rng = np.random.default_rng(5)
-    pairs = (("plane", 1, 8, inter_cuda.plane_encode, inter_cuda.plane_decode,
-              inter_cuda.encode_p_coeffs_plain,
+    pairs = (("plane", 1, 8, inter_cuda.encode_p_coeffs_plain,
               inter_cuda.decode_p_frames_plain),
-             ("c420", 2, 4, inter_cuda.c420_encode, inter_cuda.c420_decode,
-              inter_cuda.encode_c420_coeffs_plain,
+             ("c420", 2, 4, inter_cuda.encode_c420_coeffs_plain,
               inter_cuda.decode_c420_frames_plain))
-    for name, c, cell, enc, dec, enc_plain, dec_plain in pairs:
-        for g, f, h, w in ((1, 1, 8, 8), (2, 3, 8, 72), (1, 2, 24, 40),
-                           (2, 1, 48, 104), (1, 3, 16, 136)):
-            refs = torch.from_numpy(
-                rng.integers(0, 256, (g, c, h, w), dtype=np.uint8)).cuda()
-            curs = torch.from_numpy(
-                rng.integers(0, 256, (g, f, c, h, w), dtype=np.uint8)).cuda()
-            nh, nw = h // cell, w // cell
-            ext = 3 * max(h, w)
-            mv_r = rng.integers(-ext, ext + 1, (g, f, nh, nw, 2))
-            mv_r[:, :, ::2] = 0                      # all-zero vector rows
-            cases = [(oj, oi)
-                     for oi in (-1, -3, -cell, -h - 3, h - cell + 1, h, 3 * h, 0)
-                     for oj in (-1, -3, -cell, -w - 3, w - cell + 1, w, 3 * w, 0)]
-            n = np.arange(g * f * nh * nw).reshape(g, f, nh, nw)
-            mv_e = np.array(cases)[n % len(cases)]
-            mv_e[..., 0] -= np.arange(nw) * cell
-            mv_e[..., 1] -= np.arange(nh)[:, None] * cell
-            for mv in (mv_r, mv_e):
-                mv = torch.from_numpy(mv.astype(np.int32)).cuda()
-                co = enc_plain(mv, refs, curs, 50.0)
-                if not torch.equal(enc(mv, refs, curs, 50.0), co):
-                    fail(f"{name}_encode differs from its plain version at "
-                         f"{(g, f, c, h, w)}")
-                if not torch.equal(dec(mv, refs, co, 50.0),
-                                   dec_plain(mv, refs, co, 50.0)):
-                    fail(f"{name}_decode differs from its plain version at "
-                         f"{(g, f, c, h, w)}")
+    shapes = ((1, 1, 8, 8), (2, 3, 8, 72), (1, 2, 24, 40), (2, 1, 48, 104),
+              (1, 3, 16, 136)) + FUSED_EDGE_SHAPES
+    for name, c, cell, enc_plain, dec_plain in pairs:
+        enc = getattr(inter_cuda, f"{name}_encode")
+        dec = getattr(inter_cuda, f"{name}_decode")
+        earlier = earlier_has(CODED[f"{name}_encode"][0])
+        n_enc = n_dec = 0
+        for g, f, h, w in shapes:
+            vectors = plane_vectors(rng, g, f, h, w, cell)
+            frames = (("random", rng.integers(0, 256, (g, c, h, w)),
+                       rng.integers(0, 256, (g, f, c, h, w))),
+                      ("0 and 255", rng.choice([0, 255], (g, c, h, w)),
+                       rng.choice([0, 255], (g, f, c, h, w))))
+            extreme = torch.from_numpy(rng.choice(
+                np.array([-32767, 32767, 0, 0], dtype=np.int16),
+                (g, f, c, h, w))).cuda()
+            for kind, refs, curs in frames:
+                refs = torch.from_numpy(refs.astype(np.uint8)).cuda()
+                curs = torch.from_numpy(curs.astype(np.uint8)).cuda()
+                for what, mv in vectors:
+                    mv = torch.from_numpy(mv.astype(np.int32)).cuda()
+                    for qf in (50.0, 1.0, 99.0):
+                        case = (f"{(g, f, c, h, w)}, vectors {what}, frames "
+                                f"{kind}, quality {qf}")
+                        co = enc_plain(mv, refs, curs, qf)
+                        got = enc(mv, refs, curs, qf)
+                        if not torch.equal(got, co):
+                            fail(f"{name}_encode differs from its plain "
+                                 f"version at {case}")
+                        if earlier and not torch.equal(earlier_fused(
+                                f"{name}_encode", mv, refs, curs, qf)(), got):
+                            fail(f"{name}_encode differs from the earlier "
+                                 f"build at {case}")
+                        n_enc += 1
+                        for co_kind, coefs in (("coded", co),
+                                               ("+-32767", extreme)):
+                            got = dec(mv, refs, coefs, qf)
+                            if not torch.equal(
+                                    got, dec_plain(mv, refs, coefs, qf)):
+                                fail(f"{name}_decode differs from its plain "
+                                     f"version at {case}, coefficients "
+                                     f"{co_kind}")
+                            if earlier and not torch.equal(earlier_fused(
+                                    f"{name}_decode", mv, refs, coefs,
+                                    qf)(), got):
+                                fail(f"{name}_decode differs from the "
+                                     f"earlier build at {case}, "
+                                     f"coefficients {co_kind}")
+                            n_dec += 1
         print(f"[edge {name}_encode / {name}_decode, C {c}, cells of {cell}] "
-              "identical to the plain versions on 8x8, one strip row, widths "
-              "40, 72, 104 and 136, random, out-of-frame and all-zero "
-              "vectors")
+              f"{n_enc} encodes and {n_dec} decodes identical to the plain "
+              "versions" + (" and to the earlier build" if earlier else "")
+              + ": 8x8, one block row, widths 8 to 264, F = 1; vectors in "
+              "reach, before the edges, far outside, int32 extremes, random "
+              "with zero rows, at the edges; random frames and frames of 0 "
+              "and 255; quality 50, 1, 99; coded and +-32767 coefficients")
+
+        # an operand off its boundary: ValueError, and no launch
+        g, f, h, w = 1, 2, 8, 16
+        mv = torch.zeros((g, f, h // cell, w // cell, 2), dtype=torch.int32,
+                         device="cuda")
+        refs = torch.zeros((g, c, h, w), dtype=torch.uint8, device="cuda")
+        curs = torch.zeros((g, f, c, h, w), dtype=torch.uint8, device="cuda")
+        co = torch.zeros((g, f, c, h, w), dtype=torch.int16, device="cuda")
+        before = dict(inter_cuda.LAUNCHES)
+        for fn, args in ((enc, (mv, refs, curs)), (dec, (mv, refs, co))):
+            for i in range(3):
+                bad = list(args)
+                bad[i] = shifted_copy(args[i])
+                try:
+                    fn(*bad, 50.0)
+                except ValueError as e:
+                    if "boundary" not in str(e):
+                        fail(f"{fn.__name__} refused operand {i} off its "
+                             f"boundary for another reason: {e}")
+                else:
+                    fail(f"{fn.__name__} took operand {i} "
+                         f"{bad[i].data_ptr() % 16} bytes off a 16-byte "
+                         "boundary")
+        if inter_cuda.LAUNCHES != before:
+            fail(f"{name}: a refused operand was launched on")
+        print(f"[edge {name}_encode / {name}_decode] mv, refs and "
+              "curs / coefficients one element off their boundary refused "
+              "with ValueError before any launch")
     for g, f, h, w in ((2, 3, 48, 72), (1, 2, 8, 64), (2, 1, 48, 24)):
         refs = torch.from_numpy(
             rng.integers(0, 256, (g, 1, h, w), dtype=np.uint8)).cuda()
@@ -1517,14 +1627,23 @@ def plane_kernel_phase(frames, card: str):
                                dec_plain(vec, refs, co, qf)):
                 fail(f"{name}_decode differs from its plain version "
                      f"({what} vectors)")
+            if what == "random":      # the searched vectors' turn comes below
+                earlier_fused_ms(f"{name}_encode", vec, refs, curs, qf,
+                                 "random vectors")
+                earlier_fused_ms(f"{name}_decode", vec, refs, co, qf,
+                                 "random vectors")
         co = enc_plain(v, refs, curs, qf)
         results[f"{name}_encode"] = dict(
-            max_abs_err=0,
+            max_abs_err=0, redesigned=True,
+            earlier_ms=earlier_fused_ms(f"{name}_encode", v, refs, curs, qf,
+                                        "searched vectors"),
             ms=kernel_ms(lambda: enc(v, refs, curs, qf)),
             plain_ms=time_ms(lambda: enc_plain(v, refs, curs, qf), 10),
             **coded_bound(v, refs, curs, co, False), library_ms=None)
         results[f"{name}_decode"] = dict(
-            max_abs_err=0,
+            max_abs_err=0, redesigned=True,
+            earlier_ms=earlier_fused_ms(f"{name}_decode", v, refs, co, qf,
+                                        "searched vectors"),
             ms=kernel_ms(lambda: dec(v, refs, co, qf)),
             plain_ms=time_ms(lambda: dec_plain(v, refs, co, qf), 10),
             **coded_bound(v, refs, co, curs, False), library_ms=None)
@@ -1534,6 +1653,11 @@ def plane_kernel_phase(frames, card: str):
               f"{float((co != 0).float().mean()):.4f}")
     print_times(results, f"G={GOPS} F={P_PER_GOP}, luma {W}x{H}, chroma "
                 f"2x{W // 2}x{H // 2}", card)
+    for name, r in results.items():
+        if r["earlier_ms"] is not None:
+            print(f"[{name}] identical to the earlier build on searched and "
+                  f"random vectors; the earlier build takes "
+                  f"{r['earlier_ms']:.4f} ms ({card})")
 
     # K5/K6 on the chroma I planes: 16 planes of 360x640, 90 block rows
     intra_kernel_phase(c_ref.reshape(-1, H // 2, W // 2), card, plain_reps=1)
@@ -1835,7 +1959,7 @@ def main() -> int:
     ap.add_argument("--profile", action="store_true",
                     help="profile each path once instead of checking")
     ap.add_argument("--earlier", metavar="DIR",
-                    help="time the K1 to K6 of the sources in DIR as well")
+                    help="time the K1 to K7 of the sources in DIR as well")
     args = ap.parse_args()
 
     import torch

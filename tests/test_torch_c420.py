@@ -9,7 +9,12 @@ some of them apart. The JAX package holds its own backends to +-1 on fewer
 than 1e-3 of coefficients and 1e-4 of decoded samples
 (tests/test_inter_pallas.py:161-169, 209-219); the same bounds hold here,
 with the measured share printed. On residuals of small amplitude (|r| <= 6
-at QF 50) no tie is hit and the coefficients are identical."""
+at QF 50) no tie is hit and the coefficients are identical.
+
+The numpy emulation of the CUDA strip kernels themselves
+(`test_torch_kernel_identities.strip_kernel`) is held here against both
+references: identical to the plain versions, within the same bounds of the
+XLA composition."""
 
 import numpy as np
 import jax.numpy as jnp
@@ -25,6 +30,8 @@ from vcs_h264_tpu.ops.quant import quant_tables as jquant_tables  # noqa: E402
 
 from vcs_h264_tpu_torch.models import pipeline420  # noqa: E402
 from vcs_h264_tpu_torch.ops import inter_cuda  # noqa: E402
+
+from test_torch_kernel_identities import strip_kernel  # noqa: E402
 
 COEF_SHARE = 1e-3       # +-1 on fewer coefficients than this
 PIXEL_SHARE = 1e-4      # +-1 on fewer decoded samples than this
@@ -238,3 +245,35 @@ def test_bare_plane_wrappers_refuse_cpu_tensors(rng):
     assert torch.equal(same, inter_cuda.encode_c420_coeffs(
         *_t(mv_c, c_refs, c_curs), 50.0))
     assert not any(inter_cuda.LAUNCHES.values())
+
+
+@pytest.mark.parametrize("c,cell,h,w,qf", [(1, 8, 16, 168, 50.0),
+                                           (2, 4, 16, 136, 50.0),
+                                           (1, 8, 8, 136, 90.0),
+                                           (2, 4, 24, 264, 20.0)])
+def test_strip_kernel_emulation_matches_plain_and_xla(rng, c, cell, h, w, qf):
+    """The bridge from the kernel's own arithmetic to the reference: the
+    numpy emulation of csrc/inter_plane.cu's strip kernels
+    (`strip_kernel`: CTA by CTA, the exchange buffer, the register passes,
+    the thread-by-thread reference rows), on planes whose last strip of 16
+    blocks is partly filled, is identical to the plain versions and within
+    the contract (+-1 on fewer than 1e-3 of coefficients, 1e-4 of samples)
+    of the JAX package's XLA composition."""
+    mv, refs, curs = _planes(rng, 2, 2, c, h, w, cell, 2 * cell)
+    co = strip_kernel(mv, refs, curs, qf, cell, decode=False)
+    plain_enc, plain_dec, xla = (
+        (inter_cuda.encode_p_coeffs_plain, inter_cuda.decode_p_frames_plain,
+         _xla_luma) if c == 1 else
+        (inter_cuda.encode_c420_coeffs_plain,
+         inter_cuda.decode_c420_frames_plain, _xla_c420))
+    np.testing.assert_array_equal(co, plain_enc(*_t(mv, refs, curs), qf)
+                                  .numpy())
+    dec = strip_kernel(mv, refs, co, qf, cell, decode=True)
+    np.testing.assert_array_equal(dec, plain_dec(*_t(mv, refs, co), qf)
+                                  .numpy())
+    want_co, want_dec = xla(mv, refs, curs, qf)
+    _close(co, want_co, COEF_SHARE, f"strip emulation C {c} encode vs XLA")
+    got_dec = strip_kernel(mv, refs, want_co.astype(np.int16), qf, cell,
+                           decode=True)
+    _close(got_dec, want_dec, PIXEL_SHARE,
+           f"strip emulation C {c} decode vs XLA")

@@ -26,7 +26,14 @@ on, held on the CPU with numpy from a seed:
   * K1's fast form (`csrc/motion_comp.cu`) writes 16-byte words whose source
     rows it cuts out of aligned 32-bit words, the shift being one per block;
     `ops.motion_cuda.compensate_form` decides which shapes and operands take
-    it.
+    it;
+  * the bare-plane K3/K4 and K7 (`csrc/inter_plane.cu`) run K3/K4's strip on
+    one or two planes without the RCT: the passes, the true division and the
+    packed store on a bare plane's .5 ties, the reference row of a thread at
+    cells of 8 (`load_row8`) and of 4 (two vectors in one 16-byte read, two
+    4-byte runs at their own shifts), the exchange buffer of NC planes, the
+    wrappers' alignment checks; `strip_kernel` is the whole kernel, CTA by
+    CTA, held against the references in tests/test_torch_c420.py.
 """
 
 import numpy as np
@@ -41,6 +48,7 @@ from vcs_h264_tpu.ops import motion as jmotion  # noqa: E402
 
 from vcs_h264_tpu_torch.ops import dct, inter_cuda, intra, motion  # noqa: E402
 from vcs_h264_tpu_torch.ops import motion_cuda, quant  # noqa: E402
+from vcs_h264_tpu_torch.sass_report import count_listing  # noqa: E402
 from vcs_h264_tpu_torch.ops.intra_cuda import quant_magic  # noqa: E402
 
 HIGH = np.uint32(0x80808080)
@@ -829,3 +837,299 @@ def test_compensate_form_by_block_size_width_and_alignment(bs, w, refs_ptr,
 ])
 def test_compensate_grid_limits(form, gf, h, w, bs, fits):
     assert motion_cuda.compensate_grid_fits(form, gf, h, w, bs) is fits
+
+
+# --- the bare-plane K3/K4 and K7: the strip on one or two planes ---------------
+
+
+def _tie_blocks(rng, q00, n=300):
+    """Small integer residual blocks whose sum is 4 Q00 (2m + 1): the DC
+    term sum / 8 / Q00 lands on m + 1/2."""
+    m = rng.integers(-2, 2, n)
+    target = 4 * q00 * (2 * m + 1)
+    x = rng.integers(-2, 3, (n, 64))
+    x -= x.sum(1, keepdims=True) // 64
+    base, rem = np.divmod(target - x.sum(1), 64)
+    x += base[:, None] + (np.arange(64)[None, :] < rem[:, None])
+    return x.reshape(n, 8, 8)
+
+
+def _plane_blocks(kind, rng, q, n=300):
+    if kind == "ties":
+        return _tie_blocks(rng, int(q[0, 0]), n)
+    if kind == "dense":
+        x = rng.integers(-255, 256, (n, 8, 8))
+        x[: n // 4] = 255 * rng.choice([-1, 1], (n // 4, 8, 8))
+        return x
+    return None
+
+
+@pytest.mark.parametrize("qf", [1.0, 50.0, 99.0])
+@pytest.mark.parametrize("table", ["luma", "chroma"])
+@pytest.mark.parametrize("kind", ["ties", "dense", "extreme"])
+def test_bare_plane_chain_in_thread_ownership_equals_the_plain_coding(
+        rng, kind, table, qf):
+    """The encode: float(cur - pred), the passes, the true division, round
+    half to even and the packed int16 store, against `code_planes`; the
+    decode: coef * Q, the transposed passes, round half to even, + pred and
+    the clip, against `decode_planes`. "ties": residuals whose DC quotient
+    is an exact .5 (asserted to occur), "dense": +-255, "extreme":
+    coefficients at +-32767 (decode only)."""
+    q = quant.quant_tables_np(qf)[table == "chroma"].astype(np.float32)
+    d = dct.dct_matrix_np(8).astype(np.float32)
+    resid = _plane_blocks(kind, rng, q)
+    if resid is None:
+        coef = rng.choice([-32767, 32767, 0, 1, -1], (300, 8, 8))
+    else:
+        z = register_dct(resid.astype(np.float32), d)
+        quot = z / q
+        assert quot.dtype == np.float32
+        if kind == "ties":
+            assert (np.abs(quot - np.floor(quot)) == 0.5).sum() >= 100
+        words = pack_int16_pairs(np.rint(quot).astype(np.int32))
+        coef = words.view(np.int16).reshape(resid.shape)
+        want = inter_cuda.code_planes(
+            torch.from_numpy(resid).reshape(-1, 8), torch.from_numpy(q))
+        np.testing.assert_array_equal(coef, want.reshape(-1, 8, 8).numpy())
+    coef = coef.astype(np.int16)
+    x = coef.astype(np.float32) * q
+    got = np.rint(register_idct(x, d)).astype(np.int64)
+    want = inter_cuda.decode_planes(
+        torch.from_numpy(coef).reshape(-1, 8), torch.from_numpy(q))
+    np.testing.assert_array_equal(got, want.reshape(-1, 8, 8).numpy())
+    pred = rng.integers(0, 256, coef.shape)
+    np.testing.assert_array_equal(
+        np.minimum(np.maximum(pred + got, 0), 255),
+        (torch.from_numpy(pred) + want.reshape(-1, 8, 8)).clamp(0, 255)
+        .numpy())
+
+
+def strip_reference_rows(mv, refs, cell):
+    """`predicted_rows` of csrc/inter_plane.cu, thread by thread: the thread
+    of (block, row) reads its block's vector as one 8-byte word (cells of 8)
+    or the two vectors under its row as one 16-byte word (cells of 4),
+    places each source origin once, and cuts its 8 reference bytes of each
+    plane out of aligned 32-bit words: one `load_row8`, or two
+    `_load_shifted` runs of 4 bytes at their own shifts. `refs` and `mv`
+    are read as whole buffers: a read past either is an IndexError.
+    Returns the predicted planes [G, F, C, H, W]."""
+    g_n, f_n, nmh, nmw, _ = mv.shape
+    _, c_n, h, w = refs.shape
+    words = np.ascontiguousarray(refs).reshape(-1).view(np.uint32)
+    vec = np.ascontiguousarray(mv).reshape(-1)
+    plane = h * w
+    out = np.zeros((g_n, f_n, c_n, h, w), dtype=np.uint8)
+
+    def read(at, n):                 # one aligned word of n int32
+        assert at % n == 0
+        return [int(vec[at + i]) for i in range(n)]
+
+    for g in range(g_n):
+        for f in range(f_n):
+            gf = g * f_n + f
+            for bi in range(h // 8):
+                for bj in range(w // 8):
+                    for row in range(8):
+                        base = g * c_n * plane
+                        if cell == 8:
+                            dx, dy = read(((gf * nmh + bi) * nmw + bj) * 2, 2)
+                            at = base + (_place_origin(bi * 8 + dy, h, 8)
+                                         + row) * w \
+                                + _place_origin(bj * 8 + dx, w, 8)
+                            runs = [load_row8(words, at + c * plane)
+                                    for c in range(c_n)]
+                        else:
+                            mi, r = 2 * bi + row // 4, row % 4
+                            dxa, dya, dxb, dyb = read(
+                                ((gf * nmh + mi) * nmw + 2 * bj) * 2, 4)
+                            at = [base + (_place_origin(mi * 4 + dy, h, 4) + r)
+                                  * w + _place_origin(8 * bj + o + dx, w, 4)
+                                  for o, dx, dy in ((0, dxa, dya),
+                                                    (4, dxb, dyb))]
+                            runs = [[_load_shifted(words, (a + c * plane) >> 2,
+                                                   a & 3, 1)[0] for a in at]
+                                    for c in range(c_n)]
+                        for c, (lo, hi) in enumerate(runs):
+                            out[g, f, c, bi * 8 + row, bj * 8:bj * 8 + 8] = \
+                                np.array([lo, hi], np.uint32).view(np.uint8)
+    return out
+
+
+@pytest.mark.parametrize("cell,c", [(8, 1), (4, 2)])
+@pytest.mark.parametrize("h,w", [(8, 16), (16, 48), (24, 136)])
+def test_strip_reference_rows_equal_the_plain_gather(rng, cell, c, h, w):
+    g, f = 2, 3
+    refs = rng.integers(0, 256, (g, c, h, w), dtype=np.uint8)
+    # origins at every byte shift next to the last column and row, before
+    # every edge, far outside, at the int32 extremes; and random vectors
+    for mv in (_compensate_edge_vectors(rng, g, f, h, w, cell),
+               rng.integers(-3 * w, 3 * w + 1,
+                            (g, f, h // cell, w // cell, 2)).astype(np.int32)):
+        want = motion.motion_compensate_gops(
+            torch.from_numpy(mv), torch.from_numpy(refs), bs=cell,
+            backend="plain")
+        np.testing.assert_array_equal(strip_reference_rows(mv, refs, cell),
+                                      want.numpy())
+
+
+@pytest.mark.parametrize("cell,c", [(8, 1), (4, 2)])
+def test_strip_reference_rows_read_the_last_bytes_at_every_shift(rng, cell, c):
+    """Every cell of the only frame reads the last row of the last plane,
+    its source starting 0 to 8 bytes before the last possible start: the
+    shifts 1, 2, 3 reach into the tensor's last word and not past it."""
+    h, w = 8, 32
+    refs = rng.integers(0, 256, (1, c, h, w), dtype=np.uint8)
+    for back in range(9):
+        mv = np.zeros((1, 1, h // cell, w // cell, 2), dtype=np.int32)
+        mv[..., 0] = (w - cell - back) - np.arange(w // cell) * cell
+        mv[..., 1] = (h - cell) - np.arange(h // cell)[:, None] * cell
+        got = strip_reference_rows(mv, refs, cell)
+        want = np.tile(refs[:, None, :, h - cell:, w - cell - back:w - back],
+                       (1, 1, 1, h // cell, w // cell))
+        np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("nc", [1, 2, 3])
+def test_exchange_planes_keep_the_bank_pattern(nc):
+    """NC planes of the exchange buffer, kPlaneWords = 8 * (16 * 8 + 4)
+    floats apart (4.2, 8.4 and 12.7 KB): a plane starts on a multiple of 32
+    words, so every plane's accesses fall on the banks of the first plane's,
+    which `test_exchange_buffer_has_no_bank_conflict` holds free of
+    conflicts, and no two values of any plane share a word."""
+    plane_words = 8 * K_STRIDE
+    assert plane_words % 32 == 0
+    assert nc * plane_words * 4 == (4224, 8448, 12672)[nc - 1]
+    cells = {c * plane_words + _exchange_at(b, r, k) for c in range(nc)
+             for b in range(STRIP) for r in range(8) for k in range(8)}
+    assert len(cells) == nc * STRIP * 64 and max(cells) < nc * plane_words
+    tids = np.arange(32)
+    for c in range(nc):
+        for fixed in range(8):
+            for at in (_exchange_at(tids % STRIP, tids // STRIP, fixed),
+                       _exchange_at(tids // 8, fixed, tids % 8)):
+                banks = (c * plane_words + at) % 32
+                np.testing.assert_array_equal(banks, at % 32)
+                assert len(set(banks.tolist())) == 32
+
+
+@pytest.mark.parametrize("counter", ["plane_encode", "plane_decode",
+                                     "c420_encode", "c420_decode"])
+def test_alignment_check_refuses_views_off_the_boundary(counter):
+    """Each operand the strip kernels read or write in wide words: a view one
+    byte (and half the alignment) off its boundary is refused, an aligned
+    one taken."""
+    buf = torch.zeros(256, dtype=torch.uint8)
+    base = (-buf.data_ptr()) % 16                  # a 16-byte boundary
+    want = {"mv": 16 if counter.startswith("c420") else 8, "refs": 4,
+            "curs": 8, "coeffs": 16, "out": 8 if counter.endswith("decode")
+            else 16}
+    entries = inter_cuda._ALIGNMENTS[counter]
+    assert [a for a, _ in entries] == ["mv", "curs" if counter.endswith(
+        "encode") else "coeffs", "refs", "out"]
+    for arg, align in entries:
+        assert align == want[arg]
+        inter_cuda._check_aligned(counter, arg, buf[base:], align)
+        inter_cuda._check_aligned(counter, arg, buf[base + align:], align)
+        for off in (1, align // 2):
+            with pytest.raises(ValueError,
+                               match=f"{arg} must start on a {align}-byte"):
+                inter_cuda._check_aligned(counter, arg, buf[base + off:],
+                                          align)
+
+
+_LISTING = """
+\tcode for sm_90a
+\t\tFunction : _Z4kernA
+\t.headerflags\t@"EF_CUDA_TEXMODE_UNIFIED EF_CUDA_64BIT_ADDRESS"
+        /*0000*/                   LDC R1, c[0x0][0x28] ;     /* 0x00000a00ff017b82 */
+                                                              /* 0x000fe20000000800 */
+        /*0010*/              @!P0 BRA 0xd0 ;                 /* 0x00000000000c8947 */
+        /*0020*/               @P0 IADD3 R3, R3, -UR7, RZ ;   /* 0x8000000703030c10 */
+        /*0030*/                   FMUL R2, R2, UR4 ;         /* 0x0000000402027c20 */
+        /*0040*/                   EXIT ;                     /* 0x000000000000794d */
+        /*0050*/                   NOP;                       /* 0x0000000000007918 */
+\t\tFunction : _Z4kernB
+        /*0000*/                   STG.E.128 desc[UR4][R2.64], R4 ;  /* 0x0000000402007986 */
+        /*0010*/                   NOP;                       /* 0x0000000000007918 */
+"""
+
+
+def test_sass_listing_counts_every_instruction_of_each_kernel():
+    """`sass_report.count_listing`, which PERF.md's instruction counts come
+    from: one count per instruction line, predicates and encodings not
+    counted as opcodes, NOPs left out."""
+    counts = count_listing(_LISTING)
+    assert counts == {"_Z4kernA": {"LDC": 1, "BRA": 1, "IADD3": 1, "FMUL": 1,
+                                   "EXIT": 1},
+                      "_Z4kernB": {"STG.E.128": 1}}
+
+
+def strip_kernel(mv, refs, data, qf, cell, decode):
+    """`plane_encode_kernel` / `plane_decode_kernel` of csrc/inter_plane.cu,
+    CTA by CTA, in numpy float32: each CTA of 128 threads takes 16 blocks
+    of one block row and all planes; the row threads (tid = row * 16 +
+    block) fill a NaN-initialised exchange buffer at `_exchange_at` with the
+    residual or the dequantised row, the column threads (tid = block * 8 +
+    k) read it, form T and write it back after all have read, the row
+    threads form Z and quantise and pack, or round, add the predicted row
+    and clip. Threads of blocks past the plane's last do nothing. The
+    reference rows come from `strip_reference_rows`; the luma table for one
+    plane, the chroma table for two."""
+    g_n, f_n, nc, h, w = data.shape
+    nbh, nbw = h // 8, w // 8
+    d = dct.dct_matrix_np(8).astype(np.float32)
+    q = quant.quant_tables_np(qf)[nc == 2].astype(np.float32)
+    pred = strip_reference_rows(mv, refs, cell).astype(np.int32)
+    out = np.zeros(data.shape, np.uint8 if decode else np.int16)
+    tid = np.arange(STRIP * 8)
+    blk, row, cb, kk = tid % STRIP, tid // STRIP, tid // 8, tid % 8
+
+    def coef(a, b):                  # dct_at<kInverse>
+        return d[b, a] if decode else d[a, b]
+
+    for g in range(g_n):
+        for f in range(f_n):
+            for bi in range(nbh):
+                for bj0 in range(0, nbw, STRIP):
+                    xs = np.full((nc, 8 * K_STRIDE), np.nan, np.float32)
+                    ra, ca = bj0 + blk < nbw, bj0 + cb < nbw
+                    rb, rr = blk[ra], row[ra]
+                    y, x0 = bi * 8 + rr, (bj0 + rb) * 8
+                    for c in range(nc):
+                        for k in range(8):
+                            v = data[g, f, c, y, x0 + k]
+                            xs[c, _exchange_at(rb, rr, k)] = (
+                                v.astype(np.float32) * q[rr, k] if decode
+                                else (v.astype(np.int32)
+                                      - pred[g, f, c, y, x0 + k])
+                                .astype(np.float32))
+                    cols, ks = cb[ca], kk[ca]
+                    for c in range(nc):
+                        x = [xs[c, _exchange_at(cols, j, ks)] for j in range(8)]
+                        tt = []
+                        for i in range(8):
+                            acc = np.zeros(cols.size, np.float32)
+                            for j in range(8):
+                                acc = acc + coef(i, j) * x[j]
+                            tt.append(acc)
+                        for i in range(8):
+                            xs[c, _exchange_at(cols, i, ks)] = tt[i]
+                    for c in range(nc):
+                        x = [xs[c, _exchange_at(rb, rr, k)] for k in range(8)]
+                        z = []
+                        for l in range(8):
+                            acc = np.zeros(rb.size, np.float32)
+                            for k in range(8):
+                                acc = acc + x[k] * coef(l, k)
+                            z.append(acc)
+                        z = np.stack(z, -1)                   # [threads, 8]
+                        cols8 = x0[:, None] + np.arange(8)
+                        if decode:
+                            v = pred[g, f, c, y[:, None], cols8] + np.rint(z)
+                            out[g, f, c, y[:, None], cols8] = np.clip(v, 0, 255)
+                        else:
+                            words = pack_int16_pairs(
+                                np.rint(z / q[rr]).astype(np.int32))
+                            out[g, f, c, y[:, None], cols8] = \
+                                words.view(np.int16).reshape(z.shape)
+    return out

@@ -44,12 +44,10 @@
 #include <cuda_runtime.h>
 
 #include "block_origin.cuh"
+#include "dct_strip.cuh"
 #include "shifted_rows.cuh"
 
 namespace {
-
-constexpr int kBs = 8;
-constexpr int kPix = kBs * kBs;
 
 // Start of the compensated source block.
 __device__ __forceinline__ void source_origin(const int32_t* __restrict__ mv, size_t gf, int nbh,
@@ -70,7 +68,8 @@ __device__ __forceinline__ void source_origin(const int32_t* __restrict__ mv, si
 // sample in the two passes, and the block's vector read 64 times.
 //
 // Here a CTA takes kStrip neighbouring blocks of one block row, all three
-// channels, with one thread per block and row (or column). The decode (K4):
+// channels, with one thread per block and row (or column), on the strip
+// machinery of dct_strip.cuh. The decode (K4):
 //   * load: the thread of (block, row) reads its row's 8 coefficients of each
 //     channel as one 16-byte word, so a warp reads two pixel rows of the
 //     strip, 256 contiguous bytes each; it dequantises them and leaves them
@@ -111,26 +110,12 @@ __device__ __forceinline__ void source_origin(const int32_t* __restrict__ mv, si
 // (a thread a pixel): the RCT's expressions, acc = 0, acc = acc + d * x in
 // ascending j and k, the division, __float2int_rn, the low 16 bits.
 
-constexpr int kStrip = 16;                 // blocks of one block row a CTA takes
-constexpr int kKStride = kBs * kStrip + 4; // words between two k of an exchange buffer
-
-// [D, QY, QC] as the kernels' parameter
-struct Tables {
-  float d[kPix];
-  float q[2][kPix];
-};
-
-// where value (row, k) of block b lies in an exchange buffer
-__device__ __forceinline__ int exchange_at(int b, int row, int k) {
-  return k * kKStride + row * kStrip + b;
-}
-
 // grid (ceil(nbw / kStrip), nbh, G*F), block (kStrip * kBs)
 __global__ void __launch_bounds__(kStrip * kBs) fused_p_decode_kernel(
     const int32_t* __restrict__ mv, const uint8_t* __restrict__ refs,
     const int16_t* __restrict__ coeffs, const __grid_constant__ Tables t,
     uint8_t* __restrict__ out, int F, int H, int W) {
-  __shared__ float xs[3][kBs * kKStride];
+  __shared__ float xs[3][kPlaneWords];
   const int tid = threadIdx.x;
   const int nbh = H / kBs, nbw = W / kBs;
   const size_t gf = blockIdx.z;
@@ -156,63 +141,17 @@ __global__ void __launch_bounds__(kStrip * kBs) fused_p_decode_kernel(
 #pragma unroll
     for (int c = 0; c < 3; ++c) ref[c] = load_row8(rp + c * plane);
 #pragma unroll
-    for (int c = 0; c < 3; ++c) {
-      const int w4[4] = {raw[c].x, raw[c].y, raw[c].z, raw[c].w};
-#pragma unroll
-      for (int k = 0; k < kBs; ++k) {
-        const int v = (k & 1) ? (w4[k >> 1] >> 16) : static_cast<int>(static_cast<int16_t>(w4[k >> 1] & 0xffff));
-        xs[c][exchange_at(rb, row, k)] =
-            __fmul_rn(static_cast<float>(v), t.q[c == 0 ? 0 : 1][row * kBs + k]);
-      }
-    }
+    for (int c = 0; c < 3; ++c) dequantize_row(raw[c], t.q[c == 0 ? 0 : 1] + row * kBs, xs[c], rb, row);
   }
   __syncthreads();
-  {
-    // as (block, column): tid = block * kBs + k. T[i][k] = sum_j D[j][i] X[j][k],
-    // formed in registers and put back where X was once every thread has read
-    const int cb = tid / kBs, k = tid % kBs;
-    const bool c_active = bj0 + cb < nbw;
-    float tt[3][kBs];
-    if (c_active) {
-#pragma unroll
-      for (int c = 0; c < 3; ++c) {
-        float x[kBs];
-#pragma unroll
-        for (int j = 0; j < kBs; ++j) x[j] = xs[c][exchange_at(cb, j, k)];
-#pragma unroll
-        for (int i = 0; i < kBs; ++i) {
-          float acc = 0.0f;
-#pragma unroll
-          for (int j = 0; j < kBs; ++j) acc = __fadd_rn(acc, __fmul_rn(t.d[j * kBs + i], x[j]));
-          tt[c][i] = acc;
-        }
-      }
-    }
-    __syncthreads();
-    if (c_active) {
-#pragma unroll
-      for (int c = 0; c < 3; ++c)
-#pragma unroll
-        for (int i = 0; i < kBs; ++i) xs[c][exchange_at(cb, i, k)] = tt[c][i];
-    }
-  }
+  // as (block, column): tid = block * kBs + k. T[i][k] = sum_j D[j][i] X[j][k]
+  column_pass<3, true>(xs, t, tid / kBs, tid % kBs, bj0 + tid / kBs < nbw);
   __syncthreads();
   if (r_active) {
     // Z[i][l] = sum_k T[i][k] D[k][l], i = row
     float z[3][kBs];
 #pragma unroll
-    for (int c = 0; c < 3; ++c) {
-      float x[kBs];
-#pragma unroll
-      for (int k = 0; k < kBs; ++k) x[k] = xs[c][exchange_at(rb, row, k)];
-#pragma unroll
-      for (int l = 0; l < kBs; ++l) {
-        float acc = 0.0f;
-#pragma unroll
-        for (int k = 0; k < kBs; ++k) acc = __fadd_rn(acc, __fmul_rn(x[k], t.d[k * kBs + l]));
-        z[c][l] = acc;
-      }
-    }
+    for (int c = 0; c < 3; ++c) row_pass<true>(xs[c], t, rb, row, z[c]);
     uint32_t packed[3][2] = {};
 #pragma unroll
     for (int l = 0; l < kBs; ++l) {
@@ -239,7 +178,7 @@ __global__ void __launch_bounds__(kStrip * kBs) fused_p_encode_kernel(
     const int32_t* __restrict__ mv, const uint8_t* __restrict__ refs,
     const uint8_t* __restrict__ curs, const __grid_constant__ Tables t,
     int16_t* __restrict__ out, int F, int H, int W) {
-  __shared__ float xs[3][kBs * kKStride];
+  __shared__ float xs[3][kPlaneWords];
   const int tid = threadIdx.x;
   const int nbh = H / kBs, nbw = W / kBs;
   const size_t gf = blockIdx.z;
@@ -276,35 +215,8 @@ __global__ void __launch_bounds__(kStrip * kBs) fused_p_encode_kernel(
     }
   }
   __syncthreads();
-  {
-    // as (block, column): tid = block * kBs + k. T[i][k] = sum_j D[i][j] X[j][k],
-    // formed in registers and put back where X was once every thread has read
-    const int cb = tid / kBs, k = tid % kBs;
-    const bool c_active = bj0 + cb < nbw;
-    float tt[3][kBs];
-    if (c_active) {
-#pragma unroll
-      for (int c = 0; c < 3; ++c) {
-        float x[kBs];
-#pragma unroll
-        for (int j = 0; j < kBs; ++j) x[j] = xs[c][exchange_at(cb, j, k)];
-#pragma unroll
-        for (int i = 0; i < kBs; ++i) {
-          float acc = 0.0f;
-#pragma unroll
-          for (int j = 0; j < kBs; ++j) acc = __fadd_rn(acc, __fmul_rn(t.d[i * kBs + j], x[j]));
-          tt[c][i] = acc;
-        }
-      }
-    }
-    __syncthreads();
-    if (c_active) {
-#pragma unroll
-      for (int c = 0; c < 3; ++c)
-#pragma unroll
-        for (int i = 0; i < kBs; ++i) xs[c][exchange_at(cb, i, k)] = tt[c][i];
-    }
-  }
+  // as (block, column): tid = block * kBs + k. T[i][k] = sum_j D[i][j] X[j][k]
+  column_pass<3, false>(xs, t, tid / kBs, tid % kBs, bj0 + tid / kBs < nbw);
   __syncthreads();
   if (r_active) {
     // Z[i][l] = sum_k T[i][k] D[l][k], i = row; then / Q, round, and the low
@@ -312,37 +224,14 @@ __global__ void __launch_bounds__(kStrip * kBs) fused_p_encode_kernel(
     int16_t* o = out + gf * 3 * plane + at;
 #pragma unroll
     for (int c = 0; c < 3; ++c) {
-      float x[kBs];
-#pragma unroll
-      for (int k = 0; k < kBs; ++k) x[k] = xs[c][exchange_at(blk, row, k)];
-      uint32_t packed[kBs / 2];
-#pragma unroll
-      for (int l = 0; l < kBs; ++l) {
-        float acc = 0.0f;
-#pragma unroll
-        for (int k = 0; k < kBs; ++k) acc = __fadd_rn(acc, __fmul_rn(x[k], t.d[l * kBs + k]));
-        const uint32_t v = static_cast<uint32_t>(
-            __float2int_rn(__fdiv_rn(acc, t.q[c == 0 ? 0 : 1][row * kBs + l]))) & 0xffffu;
-        packed[l >> 1] = (l & 1) ? (packed[l >> 1] | (v << 16)) : v;
-      }
-      *reinterpret_cast<uint4*>(o + c * plane) = make_uint4(packed[0], packed[1], packed[2], packed[3]);
+      float z[kBs];
+      row_pass<false>(xs[c], t, blk, row, z);
+      *reinterpret_cast<uint4*>(o + c * plane) = quantize_row(z, t.q[c == 0 ? 0 : 1] + row * kBs);
     }
   }
 }
 
 }  // namespace
-
-// The 192 floats [D, QY, QC] in host memory, as the kernels' parameter.
-static Tables tables_from_host(const void* tabs_host) {
-  Tables t;
-  const float* tabs = static_cast<const float*>(tabs_host);
-  for (int i = 0; i < kPix; ++i) {
-    t.d[i] = tabs[i];
-    t.q[0][i] = tabs[kPix + i];
-    t.q[1][i] = tabs[2 * kPix + i];
-  }
-  return t;
-}
 
 // enc_tabs_host: the 192 floats [D, QY, QC] in host memory; they travel as
 // the kernel's parameter. curs must start on an 8-byte boundary, out on a

@@ -47,8 +47,7 @@ SIGNATURES = {
     # stream
     "vcs_fused_p_decode": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     # the bare-plane pairs, luma (C = 1) and 4:2:0 chroma (C = 2): as the
-    # two above with the tables in DEVICE memory, H and W being the plane's
-    # own
+    # two above (tables in host memory too), H and W being the plane's own
     "vcs_plane_encode": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     "vcs_plane_decode": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     "vcs_c420_encode": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),

@@ -141,20 +141,13 @@ def decode_c420_frames_plain(mv_c, c_refs, coeffs, qf: float) -> torch.Tensor:
 
 @functools.lru_cache(maxsize=None)
 def _tables_np(qf: float) -> np.ndarray:
-    """[D, QY, QC] float32, 192 values in host memory (cached: K3 and K4
-    take them from there as their kernels' parameter, so the array must
-    live)."""
+    """[D, QY, QC] float32, 192 values in host memory (cached: every kernel
+    of this module takes them from there as its parameter, so the array
+    must live)."""
     qy, qc = quant_tables_np(qf)
     return np.concatenate([dct_matrix_np(BS).astype(np.float32).ravel(),
                            qy.astype(np.float32).ravel(),
                            qc.astype(np.float32).ravel()])
-
-
-@functools.lru_cache(maxsize=None)
-def _tables(qf: float, device: torch.device) -> torch.Tensor:
-    """The same 192 values on the device: the bare-plane kernels' and K7's
-    constant operands, uploaded once per quality factor."""
-    return torch.from_numpy(_tables_np(qf)).to(device)
 
 
 def _check_operands(name, mv, refs, data, data_dtype, c: int, mvbs: int):
@@ -180,7 +173,7 @@ def _check_operands(name, mv, refs, data, data_dtype, c: int, mvbs: int):
                          f"{tuple(mv.shape)} do not match {tuple(data.shape)}")
     if not (mv.device == refs.device == data.device):
         raise ValueError(f"{name}: operands on different devices")
-    if g * f * c > 65535 or h // BS > 65535:      # grid z: at most G*F*C
+    if g * f > 65535 or h // BS > 65535:          # grid (strips, nbh, G*F)
         raise ValueError(f"{name}: grid too large for {tuple(data.shape)}")
 
 
@@ -190,23 +183,26 @@ def _check_aligned(name: str, arg: str, t: torch.Tensor, align: int) -> None:
                          "boundary")
 
 
-# What the strip kernels' wide accesses need, (operand, bytes) each: 16-byte
-# loads or stores of int16 rows, 8-byte ones of uint8 rows, reference rows
-# cut out of aligned 4-byte words.
+# What the strip kernels' wide accesses need, (operand, bytes) each, in the
+# order mv, data, refs, out: 16-byte loads or stores of int16 rows, 8-byte
+# ones of uint8 rows, reference rows cut out of aligned 4-byte words, a
+# block's vector as one 8-byte load and the two vectors under a row of a
+# chroma block (cells of 4) as one 16-byte load.
 _ALIGNMENTS = {
-    "fused_p_encode": (("curs", 8), ("refs", 4), ("out", 16)),
-    "fused_p_decode": (("coeffs", 16), ("refs", 4), ("out", 8)),
+    "fused_p_encode": (("mv", 4), ("curs", 8), ("refs", 4), ("out", 16)),
+    "fused_p_decode": (("mv", 4), ("coeffs", 16), ("refs", 4), ("out", 8)),
+    "plane_encode": (("mv", 8), ("curs", 8), ("refs", 4), ("out", 16)),
+    "plane_decode": (("mv", 8), ("coeffs", 16), ("refs", 4), ("out", 8)),
+    "c420_encode": (("mv", 16), ("curs", 8), ("refs", 4), ("out", 16)),
+    "c420_decode": (("mv", 16), ("coeffs", 16), ("refs", 4), ("out", 8)),
 }
 
 
 def _launch(entry: str, counter: str, mv, refs, data, qf, out):
+    for (arg, align), t in zip(_ALIGNMENTS[counter], (mv, data, refs, out)):
+        _check_aligned(counter, arg, t, align)
     lib = _build.load_library()
-    if counter in _ALIGNMENTS:
-        for (arg, align), t in zip(_ALIGNMENTS[counter], (data, refs, out)):
-            _check_aligned(counter, arg, t, align)
-        tabs_ptr = _tables_np(float(qf)).ctypes.data
-    else:
-        tabs_ptr = _tables(float(qf), data.device).data_ptr()
+    tabs_ptr = _tables_np(float(qf)).ctypes.data
     g, f, _, h, w = data.shape
     with torch.cuda.device(data.device):
         stream = torch.cuda.current_stream().cuda_stream
