@@ -18,7 +18,8 @@ package. Phases, each of which exits nonzero on failure:
 
   1. the card (nvidia-smi name and power limit), torch and CUDA versions;
      TF32 off for matmul and cuDNN;
-  2. the kernel build (one nvcc per source, all at once), timed;
+  2. the kernel build (one nvcc per source, all at once) and the build of
+     the .vcs range coder (g++, native/bitstream.cpp), timed;
   3. every kernel against its plain PyTorch version on the card:
      a. K2/K3/K4 at small edge shapes (one block row, frames narrower than
         the search window, partial CTAs, one P-frame, vectors whose source
@@ -83,21 +84,33 @@ package. Phases, each of which exits nonzero on failure:
      over 3.35 TB/s and its operations over 67 TFLOP/s, from this run's
      shapes and data) and, where one PyTorch call computes the same
      function, that call's time;
-  4. the main paths through the user entry points, each with the launch
+  4. the legacy containers (`legacy_vcs_phase`: tests/fixtures/legacy_v3.vcs
+     to v10) loaded with K6 on the card and decoded there, each within +-1
+     on fewer than 5e-3 of the values of its stored frames;
+  5. the main paths through the user entry points, each with the launch
      counts set to 0 just before its kernel run and read just after, each
-     kernel run held against the plain path's run:
+     kernel run held against the plain path's run. The kernel run of every
+     path but reference mode crosses .vcs (`cross_vcs`): save_vcs and
+     load_vcs three times each (median seconds), the file's bytes against
+     the .npz of the same stream and its bits per pixel, no kernel launched
+     by a save and K6 alone by a load, once per plane shape (1, or 2 in
+     4:2:0) and GOP_CHUNK GOPs, the loaded stream identical field for field
+     and its decode identical to the in-memory stream's:
      a. raw I-frames: a seeded synthetic 1280x720 clip of 34 frames (8 full
         IPPP GOPs at gop_batch 8 plus a tail GOP of I + 1 P) through
         Encoder(CodecConfig.production(), device="cuda").encode_frames ->
-        save_npz -> load_npz -> Decoder(device="cuda").decode: K2-K4
-        launched, P-frame PSNR within 0.01 dB of the plain versions;
+        save_vcs -> load_vcs -> Decoder(device="cuda").decode (the loaded
+        stream identical field for field to the encoded one): K2-K4 and
+        K6 (the loader's lossless intra decode) launched, P-frame PSNR
+        within 0.01 dB of the plain versions;
      b. production, CodecConfig.production(intra_qstep=24), on the same
         clip: the same chain, then decode_intra_frames_lossy_batch of the
         loaded I-frame payloads, as the JAX package's bench charges it:
         K2-K6 launched, the intra decode identical to the stored I-frames,
         I-frame reconstructions, modes and qcoef identical to the plain
         path's, I- and P-frame PSNR within 0.01 dB of it;
-     c. reference mode, CodecConfig(), on the same clip: K1 and K2
+     c. reference mode, CodecConfig(), on the same clip, through .npz
+        (.vcs refuses its float coefficients): K1 and K2
         launched and neither K3 nor K4, decoded frames identical to the
         plain path's, and an encode with TF32 allowed for matmul gives
         identical coefficients;
@@ -115,8 +128,9 @@ package. Phases, each of which exits nonzero on failure:
         search_luma_only=True): K2 (at C = 1) and the full-resolution
         K3-K6;
      fps of a-c as medians of three runs, kernel and plain path
-     interleaved (decoding the stream from host memory; the .npz save and
-     load are not timed), of d-g and of b's plain path from one run each.
+     interleaved (decoding the stream from host memory; the container's
+     save and load are not timed), of d-g and of b's plain path from one
+     run each.
 
 K2 has two kernels, chosen by shape in its C entry point: the word kernel
 (block sizes 4, 8, 16 on 4-byte boundaries; all main shapes) and the byte
@@ -1664,13 +1678,85 @@ def plane_kernel_phase(frames, card: str):
     return results
 
 
-def run_codec(frames, backend: str, cfg, via_npz: bool = True):
+def container_of(cfg) -> str:
+    """The container a path's checked run crosses: .vcs, or .npz for a
+    reference-mode stream (float coefficients), which .vcs refuses."""
+    return "npz" if cfg.with_dct and cfg.quant_mode == "reference" else "vcs"
+
+
+def same_fields(video, loaded, what: str) -> None:
+    """Fail unless the loaded stream is the encoded one field for field."""
+    import dataclasses
+    import torch
+    for g, (a, b) in enumerate(zip(video.gops, loaded.gops)):
+        for f in dataclasses.fields(a):
+            x, y = getattr(a, f.name), getattr(b, f.name)
+            if (x is None) != (y is None) or (
+                    x is not None and not torch.equal(x.cpu(), y.cpu())):
+                fail(f"{what} changed the stream (GOP {g}, {f.name})")
+
+
+def cross_vcs(video, path: str, backend: str, report=None):
+    """save_vcs, then load_vcs decoding the intra I-frames with `backend`;
+    fails if the save launches a kernel or the load one other than K6.
+    With `report` = (label, card): each three times, and fails unless every
+    load launches K6 once per plane shape and GOP_CHUNK GOPs; prints the
+    median seconds, the K6 launches per load and the file's bytes against
+    the .npz of the same stream. Returns the loaded stream."""
+    from vcs_h264_tpu_torch.io import bitstream
+
+    t_save, t_load, k6 = [], [], []
+    for _ in range(3 if report else 1):
+        c0 = read_counts()
+        t0 = time.perf_counter()
+        bitstream.save_vcs(video, path)
+        t1 = time.perf_counter()
+        c1 = read_counts()
+        loaded = bitstream.load_vcs(path, backend=backend)
+        t2 = time.perf_counter()
+        c2 = read_counts()
+        t_save.append(t1 - t0)
+        t_load.append(t2 - t1)
+        if c1 != c0:
+            fail(f"save_vcs launched kernels: {c0} -> {c1}")
+        d = {k: c2[k] - c1[k] for k in c2}
+        k6.append(d.pop("intra_decode"))
+        if any(d.values()):
+            fail(f"load_vcs launched {d}")
+    if report is None:
+        return loaded
+    label, card = report
+    cfg = video.config
+    batches = -(-len(video.gops) // bitstream.GOP_CHUNK)
+    want = ((2 if cfg.chroma_420 else 1) if cfg.intra_i else 0) * batches
+    if k6 != [want] * 3:
+        fail(f"load_vcs made {k6} K6 launches, not {want} per load "
+             f"({label})")
+    vcs_bytes = os.path.getsize(path)
+    npz = path[:-len(".vcs")] + ".npz"
+    video.save_npz(npz)
+    npz_bytes = os.path.getsize(npz)
+    pixels = video.num_frames * video.height * video.width
+    print(f"[{label}] .vcs {vcs_bytes} bytes against .npz {npz_bytes} bytes "
+          f"({vcs_bytes / npz_bytes:.4f} of it), "
+          f"{8 * vcs_bytes / pixels:.4f} bits per pixel; save_vcs median "
+          f"{float(np.median(t_save)):.4f} s of "
+          f"{[round(t, 4) for t in t_save]}, load_vcs median "
+          f"{float(np.median(t_load)):.4f} s of "
+          f"{[round(t, 4) for t in t_load]}; K6 launches per load {k6[0]} "
+          f"({len(video.gops)} GOPs); native coder ({card})")
+    return loaded
+
+
+def run_codec(frames, backend: str, cfg, container=None, report=None):
     """Encode -> decode through the user entry points, the stream crossing
-    the .npz container (checked field for field) or, for timing runs, a
-    copy in host memory; then, with lossy intra, the intra decode of the
-    stream's I-frame payloads in batches of 8 GOPs (as the JAX package's
-    bench charges it). Returns (decoded frames, encoded video, per GOP the
-    tuple of intra-decoded I planes, encode s, decode s, intra decode s)."""
+    a container (`container`: "vcs" through `cross_vcs`, which reports and
+    checks the container when given `report` = (label, card), or "npz";
+    checked field for field) or, for timing runs (None), a copy in host
+    memory; then, with lossy intra, the intra decode of the stream's I-frame
+    payloads in batches of 8 GOPs (as the JAX package's bench charges it).
+    Returns (decoded frames, encoded video, per GOP the tuple of
+    intra-decoded I planes, encode s, decode s, intra decode s)."""
     import dataclasses
     import torch
     from vcs_h264_tpu_torch.models import Decoder, EncodedVideo, Encoder
@@ -1682,17 +1768,15 @@ def run_codec(frames, backend: str, cfg, via_npz: bool = True):
     video = Encoder(cfg, device="cuda", backend=backend).encode_frames(frames)
     torch.cuda.synchronize()
     t_enc = time.perf_counter() - t0
-    if via_npz:
+    if container:
         with tempfile.TemporaryDirectory() as tmp:
-            path = os.path.join(tmp, "stream.npz")
-            video.save_npz(path)
-            loaded = EncodedVideo.load_npz(path)
-        for a, b in zip(video.gops, loaded.gops):
-            for f in dataclasses.fields(a):
-                x, y = getattr(a, f.name), getattr(b, f.name)
-                if (x is None) != (y is None) or (
-                        x is not None and not torch.equal(x.cpu(), y)):
-                    fail(f".npz roundtrip changed the stream ({f.name})")
+            path = os.path.join(tmp, f"stream.{container}")
+            if container == "vcs":
+                loaded = cross_vcs(video, path, backend, report)
+            else:
+                video.save_npz(path)
+                loaded = EncodedVideo.load_npz(path)
+        same_fields(video, loaded, f".{container} roundtrip")
     else:
         loaded = dataclasses.replace(
             video, gops=[g.to("cpu") for g in video.gops])
@@ -1767,7 +1851,7 @@ def main_path_phase(frames, card: str, cfg, label: str, want, forbid=(),
                     runs: int = 3, exact: bool = False,
                     tf32_check: bool = False, psnr_floor: float = 30.0,
                     plain_once: bool = False):
-    """Phase 4: the port's user entry points, kernels vs plain versions.
+    """Phase 5: the port's user entry points, kernels vs plain versions.
     `want` kernels must launch in the counted run, `forbid` ones must not;
     `exact`: the decoded frames must be identical to the plain path's;
     `tf32_check`: an encode with TF32 allowed must give identical
@@ -1777,26 +1861,34 @@ def main_path_phase(frames, card: str, cfg, label: str, want, forbid=(),
     Returns the counted run's launch counts."""
     import torch
 
-    run_codec(frames, "auto", cfg, via_npz=False)     # warm-up
+    run_codec(frames, "auto", cfg)     # warm-up
     if runs > 1 and not plain_once:
-        run_codec(frames, "plain", cfg, via_npz=False)
+        run_codec(frames, "plain", cfg)
     reset_counts()
-    decoded, video, i_dec, *t_k = run_codec(frames, "auto", cfg)
+    decoded, video, i_dec, *t_k = run_codec(
+        frames, "auto", cfg, container_of(cfg), report=(label, card))
     launches = read_counts()
     print(f"[{label}] kernel launches {launches}")
+    if container_of(cfg) == "vcs":
+        from vcs_h264_tpu_torch.models import Decoder
+        if any(not np.array_equal(a, b) for a, b in
+               zip(decoded, Decoder(device="cuda").decode(video))):
+            fail(f"frames decoded from the loaded .vcs differ from the "
+                 f"in-memory stream's ({label})")
+        print(f"[{label}] the frames decoded from the loaded .vcs are "
+              "identical to the in-memory stream's")
     if any(launches[k] == 0 for k in want):
         fail(f"a kernel of the main path was never launched ({label})")
     if any(launches[k] != 0 for k in forbid):
         fail(f"{label} launched {[k for k in forbid if launches[k]]}, "
              "which it must not take")
-    dec_plain, video_plain, i_dec_plain, *t_p = run_codec(frames, "plain",
-                                                          cfg)
+    dec_plain, video_plain, i_dec_plain, *t_p = run_codec(
+        frames, "plain", cfg, container_of(cfg))
     times = {"auto": [t_k], "plain": [t_p]}
     if runs == 3:       # two more runs of each path, interleaved
         for backend in (("auto", "auto") if plain_once
                         else ("plain", "auto", "auto", "plain")):
-            times[backend].append(run_codec(frames, backend, cfg,
-                                            via_npz=False)[3:])
+            times[backend].append(run_codec(frames, backend, cfg)[3:])
 
     if len(decoded) != len(frames) or decoded[0].shape != (H, W, 3):
         fail(f"decoded {len(decoded)} frames of {decoded[0].shape}")
@@ -1880,7 +1972,7 @@ def main_path_phase(frames, card: str, cfg, label: str, want, forbid=(),
 
 
 def main_paths() -> list:
-    """Phase 4's paths: (config, label, what `main_path_phase` holds it
+    """Phase 5's paths: (config, label, what `main_path_phase` holds it
     to)."""
     from vcs_h264_tpu_torch import CodecConfig
 
@@ -1928,12 +2020,12 @@ def profile_path(frames, card: str, cfg, label: str, rows: int = 10) -> None:
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    run_codec(frames, "auto", cfg, via_npz=False)
+    run_codec(frames, "auto", cfg)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        run_codec(frames, "auto", cfg, via_npz=False)
+        run_codec(frames, "auto", cfg)
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     # device-side rows only: a host-side operator row repeats the device
@@ -1951,6 +2043,44 @@ def profile_path(frames, card: str, cfg, label: str, rows: int = 10) -> None:
           f"rows ({card}):")
     for key, ms, count in events[:rows]:
         print(f"[profile {label}]   {ms:9.3f} ms  x{count:<4d} {key[:90]}")
+
+
+LEGACY_VERSIONS = range(3, 11)
+
+
+def legacy_vcs_phase(card: str) -> None:
+    """Phase 4, the legacy containers (tests/fixtures/legacy_v3.vcs ... v10, 48x64,
+    10 frames): loaded with the I-frames decoded by K6 on the card
+    (lossless for v3/v4, lossy for v5-v10, 4:2:0 for v6/v7), decoded on the
+    card, and held to the frames stored beside them within the CPU test's
+    bound: +-1 on fewer than 5e-3 of each frame's values."""
+    from vcs_h264_tpu_torch.io import bitstream
+    from vcs_h264_tpu_torch.models import Decoder
+
+    fixtures = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            "tests", "fixtures")
+    for version in LEGACY_VERSIONS:
+        reset_counts()
+        loaded = bitstream.load_vcs(
+            os.path.join(fixtures, f"legacy_v{version}.vcs"))
+        k6 = read_counts()["intra_decode"]
+        if k6 != (2 if loaded.config.chroma_420 else 1):
+            fail(f"legacy v{version}: {k6} K6 launches in the load")
+        got = Decoder(device="cuda").decode(loaded)
+        with np.load(os.path.join(fixtures,
+                                  f"legacy_v{version}_frames.npz")) as z:
+            want = [z[f"f{i}"] for i in range(len(z.files))]
+        if len(got) != len(want):
+            fail(f"legacy v{version}: {len(got)} frames, not {len(want)}")
+        diffs = [np.abs(a.astype(np.int32) - b) for a, b in zip(got, want)]
+        worst = max(int(d.max()) for d in diffs)
+        shares = [float(np.mean(d != 0)) for d in diffs]
+        print(f"[legacy v{version}] {len(got)} frames, K6 launches {k6}, "
+              f"signed_residual {loaded.config.signed_residual}; max |diff| "
+              f"{worst}, share of values that differ {np.mean(shares):.6f} "
+              f"(worst frame {max(shares):.6f}) ({card})")
+        if worst > 1 or max(shares) >= 5e-3:
+            fail(f"legacy v{version} decodes outside +-1 on 5e-3 of values")
 
 
 def main() -> int:
@@ -1981,6 +2111,13 @@ def main() -> int:
     print(f"[build] {time.perf_counter() - t0:.2f} s "
           f"({'nvcc' if _build.build_seconds is not None else 'cached'}) -> "
           f"{_build.library_path().name}")
+    from vcs_h264_tpu_torch.io import bitstream
+    t0 = time.perf_counter()
+    if not bitstream.native_loaded():
+        fail("g++ could not build the .vcs range coder "
+             f"({bitstream.NATIVE_SRC})")
+    print(f"[build] .vcs range coder {time.perf_counter() - t0:.2f} s -> "
+          f"{bitstream.native_library_path().name}")
 
     if args.earlier:
         load_earlier(args.earlier)
@@ -2009,6 +2146,7 @@ def main() -> int:
     intra_1080_phase(card)
     kernels.update(compensate_kernel_phase(frames, card))
     kernels.update(plane_kernel_phase(frames, card))
+    legacy_vcs_phase(card)
 
     launches = {}
     for cfg, label, kw in main_paths():

@@ -15,7 +15,7 @@ from vcs_h264_tpu.ops import blocks as jblocks  # noqa: E402
 from vcs_h264_tpu.ops import dct as jdct  # noqa: E402
 from vcs_h264_tpu.ops import quant as jquant  # noqa: E402
 
-from vcs_h264_tpu_torch.config import CodecConfig, check_supported  # noqa: E402
+from vcs_h264_tpu_torch.config import CodecConfig  # noqa: E402
 from vcs_h264_tpu_torch.ops import blocks, dct, quant  # noqa: E402
 
 
@@ -47,27 +47,20 @@ def test_config_validation_matches_jax(kwargs):
 
 
 @pytest.mark.parametrize("kwargs", [
-    dict(quant_mode="rounded", signed_residual=False),
-])
-def test_unported_modes_raise(kwargs):
-    with pytest.raises(NotImplementedError):
-        check_supported(CodecConfig(**kwargs))
-
-
-@pytest.mark.parametrize("kwargs", [
     dict(), dict(quant_mode="rounded", with_dct=False, block_size=8),
     dict(quant_mode="rounded", gop_pattern=("I", "B", "P")),
     dict(quant_mode="rounded", with_residual=False),
     dict(quant_mode="rounded", chroma_420=True),
     dict(quant_mode="rounded", search_luma_only=True),
+    dict(quant_mode="rounded", signed_residual=False),
 ])
 def test_ported_modes_are_supported(kwargs, rng, tmp_path):
-    """Reference mode, no DCT, B patterns, no residual, 4:2:0 and the
-    luma-only search: supported, and a tiny encode -> .npz -> decode gives
-    every frame back (a full GOP and an I-frame-only tail)."""
+    """Reference mode, no DCT, B patterns, no residual, 4:2:0, the
+    luma-only search and the legacy unsigned residual: supported, and a tiny
+    encode -> .npz -> decode gives every frame back (a full GOP and an
+    I-frame-only tail)."""
     from vcs_h264_tpu_torch.models import Decoder, EncodedVideo, Encoder
     cfg = CodecConfig(**kwargs)
-    check_supported(cfg)
     frames = [rng.integers(0, 256, (16, 16, 3), dtype=np.uint8)
               for _ in range(cfg.gop_len + 1)]
     Encoder(cfg, device="cpu").encode_frames(frames).save_npz(
@@ -79,10 +72,13 @@ def test_ported_modes_are_supported(kwargs, rng, tmp_path):
 
 
 def test_production_slice_is_supported():
-    check_supported(CodecConfig.production())
-    check_supported(CodecConfig.production(quality_factor=90.0,
-                                           gop_pattern=("I", "P")))
-    check_supported(CodecConfig.production(intra_qstep=24))
+    from vcs_h264_tpu_torch.models import Decoder, Encoder
+    for cfg in (CodecConfig.production(),
+                CodecConfig.production(quality_factor=90.0,
+                                       gop_pattern=("I", "P")),
+                CodecConfig.production(intra_qstep=24)):
+        assert Encoder(cfg, device="cpu").cfg == cfg
+    assert Decoder(device="cpu").device.type == "cpu"
 
 
 def test_blocks_match_jax(rng):

@@ -269,10 +269,15 @@ def test_cuda_device_without_gpu_raises():
 
 
 _ISOLATION = """
+import os
 import sys
+import tempfile
 import numpy as np
 import torch
 torch.set_num_threads(1)
+from vcs_h264_tpu_torch.io import bitstream
+tmp_dir = tempfile.TemporaryDirectory()
+tmp = tmp_dir.name
 from vcs_h264_tpu_torch import CodecConfig
 from vcs_h264_tpu_torch.models import Decoder, Encoder
 from vcs_h264_tpu_torch.ops import inter_cuda, intra_cuda, motion_cuda
@@ -290,7 +295,14 @@ for cfg in (CodecConfig.production(), CodecConfig.production(intra_qstep=24),
     video = Encoder(cfg, device="cpu").encode_frames(frames)
     assert len(Decoder(device="cpu").decode(video)) == 8
     assert len(interop.to_numpy_video(video)["gops"]) == len(video.gops)
-bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "vcs_h264_tpu"))
+    if cfg.quant_mode == "rounded":
+        path = os.path.join(tmp, "v.vcs")
+        bitstream.save_vcs(video, path, device="cpu")
+        loaded = bitstream.load_vcs(path, device="cpu")
+        assert len(Decoder(device="cpu").decode(loaded)) == 8
+assert bitstream.native_loaded()
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "vcs_h264_tpu", "cv2"))
 launches = {**motion_cuda.LAUNCHES, **inter_cuda.LAUNCHES, **intra_cuda.LAUNCHES}
 print(bad, launches)
 sys.exit(1 if bad or any(launches.values()) else 0)

@@ -7,20 +7,24 @@ with_dct=False at any block size and with_residual=False), the production
 path (`CodecConfig.production()`) with raw or lossy intra I-frames, B-frame
 patterns in either (`CodecConfig.bframes()`), the luma-only search
 (`search_luma_only`) and the 4:2:0 mode (`chroma_420`, with or without
-B-frames and lossy intra): `Encoder.encode_frames` ->
+B-frames and lossy intra) and the legacy unsigned residual of the
+version-3 container (`signed_residual=False`): `Encoder.encode_frames` ->
+`io.bitstream.save_vcs` / `load_vcs` (the range-coded `.vcs` container) or
 `EncodedVideo.save_npz` / `load_npz` -> `Decoder.decode`, plus the intra
-codec of `models.intra_codec`. The legacy unsigned residual raises
-NotImplementedError (ROADMAP.md).
+codec of `models.intra_codec`.
 
 Layout:
   config.py   CodecConfig (field for field the JAX package's)
-  ops/        blocks, color, subsample, dct, quant, motion and intra (plain
-              PyTorch), motion_cuda, inter_cuda and intra_cuda (kernel
+  ops/        blocks, color, subsample, dct, quant (tables, zigzag), motion
+              and intra (plain PyTorch), motion_cuda, inter_cuda and
+              intra_cuda (kernel
               wrappers, with the plain versions of K3/K4/K7 in inter_cuda),
               _build (nvcc)
   csrc/       the CUDA kernels
-  models/     gop (container), pipeline, pipeline420, intra_codec, encoder,
-              decoder
+  models/     gop (.npz container), pipeline, pipeline420, intra_codec,
+              encoder, decoder
+  io/         bitstream (.vcs container: the range coder, native/bitstream.cpp
+              built with g++, and its Python mirror)
   utils/      metrics
   interop.py  encoded streams to and from the JAX package
 """

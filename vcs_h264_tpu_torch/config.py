@@ -107,18 +107,3 @@ class CodecConfig:
         kw.update(overrides)
         return cls(**kw)
 
-
-# What the port codes so far, and the ROADMAP.md item that ports the rest.
-_NOT_PORTED = (
-    (lambda c: not c.signed_residual,
-     "signed_residual=False, the legacy v3 container (ROADMAP M6)"),
-)
-
-
-def check_supported(cfg: CodecConfig) -> None:
-    """Raise NotImplementedError for a mode the port does not code yet, so
-    no stream is ever silently coded with the wrong semantics."""
-    for test, what in _NOT_PORTED:
-        if test(cfg):
-            raise NotImplementedError(
-                f"vcs_h264_tpu_torch does not port {what} yet")

@@ -13,7 +13,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from vcs_h264_tpu_torch.config import CodecConfig, check_supported
+from vcs_h264_tpu_torch.config import CodecConfig
 from vcs_h264_tpu_torch.models.gop import (NPZ_420, EncodedGOP,
                                             EncodedGOP420, EncodedVideo,
                                             residual_dtype)
@@ -33,10 +33,8 @@ def _dtypes(cfg: CodecConfig) -> dict:
 
 def from_jax_video(video) -> EncodedVideo:
     """A JAX-package `EncodedVideo` (any array type numpy can read) -> this
-    package's, with CPU tensors. Raises NotImplementedError for streams in
-    modes this package does not code."""
+    package's, with CPU tensors."""
     cfg = CodecConfig(**dataclasses.asdict(video.config))
-    check_supported(cfg)
 
     def conv(v, dtype):
         return None if v is None else torch.from_numpy(

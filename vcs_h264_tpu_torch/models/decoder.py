@@ -18,7 +18,6 @@ from typing import Iterator, List
 import numpy as np
 import torch
 
-from vcs_h264_tpu_torch.config import check_supported
 from vcs_h264_tpu_torch.models import pipeline, pipeline420
 from vcs_h264_tpu_torch.models.encoder import resolve_device
 from vcs_h264_tpu_torch.models.gop import EncodedVideo
@@ -45,7 +44,6 @@ class Decoder:
 
     def iter_frames(self, video: EncodedVideo) -> Iterator[np.ndarray]:
         """Yield BGR uint8 [H, W, 3] frames in stream order."""
-        check_supported(video.config)
         for n, frame in enumerate(self._iter_gops(video)):
             if n >= video.num_frames:
                 return

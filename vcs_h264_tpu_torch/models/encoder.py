@@ -23,7 +23,7 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from vcs_h264_tpu_torch.config import CodecConfig, check_supported
+from vcs_h264_tpu_torch.config import CodecConfig
 from vcs_h264_tpu_torch.models import intra_codec, pipeline, pipeline420
 from vcs_h264_tpu_torch.models.gop import (EncodedGOP, EncodedGOP420,
                                             EncodedVideo)
@@ -68,7 +68,6 @@ class Encoder:
 
     def __init__(self, cfg: CodecConfig = CodecConfig(), gop_batch: int = 8,
                  *, device="cuda", backend: str = "auto"):
-        check_supported(cfg)
         if gop_batch < 1:
             raise ValueError("gop_batch must be >= 1")
         check_backend(backend)

@@ -31,7 +31,7 @@ from typing import List, Optional, Sequence, Union
 import numpy as np
 import torch
 
-from vcs_h264_tpu_torch.config import CodecConfig, check_supported
+from vcs_h264_tpu_torch.config import CodecConfig
 
 
 def residual_dtype(cfg: CodecConfig) -> np.dtype:
@@ -241,7 +241,7 @@ class EncodedVideo:
     @classmethod
     def load_npz(cls, path: str) -> "EncodedVideo":
         """Load a stream written by either package; tensors land on the
-        CPU. Raises NotImplementedError for a mode the port does not code."""
+        CPU."""
         with np.load(path, allow_pickle=False) as data:
             raw_meta = str(data["_meta"][0])
             try:
@@ -260,7 +260,6 @@ class EncodedVideo:
                 intra_i=bool(meta.get("intra_i", 0)),
                 intra_qstep=int(meta.get("intra_qstep", 0)),
                 chroma_420=bool(meta.get("chroma_420", 0)))
-            check_supported(cfg)
             head = (cfg, int(meta["height"]), int(meta["width"]),
                     float(meta["fps"]), int(meta["num_frames"]))
             if cfg.chroma_420:

@@ -34,7 +34,7 @@ from typing import Optional
 
 import torch
 
-from vcs_h264_tpu_torch.config import CodecConfig, check_supported
+from vcs_h264_tpu_torch.config import CodecConfig
 from vcs_h264_tpu_torch.models.gop import EncodedGOP
 from vcs_h264_tpu_torch.ops import color, inter_cuda, motion
 from vcs_h264_tpu_torch.ops.blocks import blocks_to_plane, plane_to_blocks
@@ -220,7 +220,6 @@ def encode_gop_batch(i_frames: torch.Tensor, p_frames: torch.Tensor,
     non-I frames in display order (F >= 1), on one device -> EncodedGOP
     with a leading batch axis. A B pattern is used only when the GOP is
     complete (F == gop_len - 1); a shorter GOP is coded all-P."""
-    check_supported(cfg)
     use_b = cfg.has_b and p_frames.shape[1] == cfg.gop_len - 1
     if use_b:
         _, _, _, _, p_sel, b_sel = gop_layout(cfg.gop_pattern)
@@ -273,7 +272,6 @@ def decode_gop_batch(gop: EncodedGOP, cfg: CodecConfig,
                      backend: str = "auto") -> torch.Tensor:
     """Batched EncodedGOP with F >= 1 P-frames -> uint8 frames
     [B, num_coded, 3, H, W] in display order."""
-    check_supported(cfg)
     i_frames = gop.i_frame
     if gop.residuals is not None and _use_fused_inter(cfg, gop.mv.shape[1]):
         out_p = inter_cuda.decode_p_frames(gop.mv, i_frames, gop.residuals,

@@ -30,7 +30,7 @@ import dataclasses
 
 import torch
 
-from vcs_h264_tpu_torch.config import CodecConfig, check_supported
+from vcs_h264_tpu_torch.config import CodecConfig
 from vcs_h264_tpu_torch.models import intra_codec
 from vcs_h264_tpu_torch.models.gop import EncodedGOP420
 from vcs_h264_tpu_torch.models.pipeline import _bi_average, gop_layout
@@ -183,7 +183,6 @@ def encode_gop_batch_420(i_frames: torch.Tensor, p_frames: torch.Tensor,
     of EncodedGOP420. H and W must be multiples of 2 * block_size. A B
     pattern is used only when the GOP is complete; a shorter GOP is coded
     all-P."""
-    check_supported(cfg)
     bs = cfg.block_size
     if i_frames.shape[-2] % (2 * bs) or i_frames.shape[-1] % (2 * bs):
         raise ValueError(f"4:2:0 needs H and W multiples of {2 * bs}, got "
@@ -236,7 +235,6 @@ def decode_gop_batch_420(gop: EncodedGOP420, cfg: CodecConfig,
     """Batched EncodedGOP420 with F >= 1 P-frames -> planar BGR uint8
     [B, num_coded, 3, H, W] in display order, or with as_bgr=False the
     plane stacks (y [B, num_coded, H, W], c [B, num_coded, 2, H/2, W/2])."""
-    check_supported(cfg)
     bs, qf = cfg.block_size, cfg.quality_factor
     y_i, c_i = gop.i_y.contiguous(), gop.i_c.contiguous()
     mv = gop.mv.contiguous()

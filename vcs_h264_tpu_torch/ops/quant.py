@@ -1,6 +1,7 @@
-"""JPEG quantization tables and quality-factor scaling (counterpart of
-`vcs_h264_tpu/ops/quant.py:31-76`; the zigzag scan waits for the `.vcs`
-container, ROADMAP M6).
+"""JPEG quantization tables, quality-factor scaling, quantization and the
+zigzag scan (counterpart of `vcs_h264_tpu/ops/quant.py`). The functions
+below the tables take torch tensors or numpy arrays; the `.vcs` container
+(`io/bitstream.py`) orders each block's coefficients by `zigzag_order_np`.
 
     scale = 50/QF            (1 <= QF < 50)
     scale = (100-QF)/50      (50 <= QF <= 99)
@@ -60,3 +61,54 @@ def quant_tables(qf: float, device=None) -> torch.Tensor:
     qy, qc = quant_tables_np(qf)
     return torch.tensor(np.stack([qy, qc, qc]), dtype=torch.float32,
                         device=device)
+
+
+def quantize(coeffs, q, rounded: bool):
+    """coeffs / q, optionally rounded to nearest with ties to even (as
+    `np.round` and `torch.round` both round). `coeffs` [..., bs, bs]
+    float; `q` a broadcastable table."""
+    d = coeffs / q
+    if rounded:
+        d = torch.round(d) if isinstance(d, torch.Tensor) else np.round(d)
+    return d
+
+
+def dequantize(coeffs, q):
+    return coeffs * q
+
+
+@functools.lru_cache(maxsize=None)
+def zigzag_order_np(n: int) -> np.ndarray:
+    """Flat indices of an n x n block in zigzag (diagonal) scan order."""
+    idx = []
+    for s in range(2 * n - 1):
+        diag = [(i, s - i) for i in range(max(0, s - n + 1), min(n, s + 1))]
+        if s % 2 == 0:
+            diag = diag[::-1]   # even diagonals run bottom-left -> top-right
+        idx.extend(i * n + j for i, j in diag)
+    return np.array(idx, dtype=np.int32)
+
+
+def _index(order: np.ndarray, like):
+    """`order` as an index into `like`, a tensor (on its device) or an
+    array."""
+    if isinstance(like, torch.Tensor):
+        return torch.from_numpy(order.astype(np.int64)).to(like.device)
+    return order
+
+
+def zigzag(blocks):
+    """[..., n, n] -> [..., n*n] in zigzag order."""
+    n = blocks.shape[-1]
+    flat = blocks.reshape(*blocks.shape[:-2], n * n)
+    return flat[..., _index(zigzag_order_np(n), blocks)]
+
+
+def unzigzag(scans):
+    """[..., n*n] zigzag -> [..., n, n]."""
+    nn = scans.shape[-1]
+    n = int(round(nn ** 0.5))
+    order = zigzag_order_np(n)
+    inv = np.empty_like(order)
+    inv[order] = np.arange(nn, dtype=np.int32)
+    return scans[..., _index(inv, scans)].reshape(*scans.shape[:-1], n, n)
