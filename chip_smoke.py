@@ -131,6 +131,28 @@ package. Phases, each of which exits nonzero on failure:
      interleaved (decoding the stream from host memory; the container's
      save and load are not timed), of d-g and of b's plain path from one
      run each.
+  6. the streaming path (`stream_phase`), production with intra_qstep 24
+     and gop_batch 2, so that `encode_stream` takes five chunks of 8, 8, 8,
+     8 and 2 frames: its counted run is the overlapped window, encode_stream
+     over an in-memory reader and Decoder.iter_frames over the stream's copy
+     in host memory (pinned staging, upload and download streams), under
+     torch.cuda.set_sync_debug_mode("warn"), which prints every host sync
+     in it (the blocking decode is the control, which must show some), and
+     the same census of encode_stream and iter_frames for each of the
+     other six paths; K2-K5 launched. Then the stream equals
+     encode_frames's field for field and its .vcs has the same bytes;
+     iter_frames's frames are identical to decode()'s and to the blocking
+     decode the port ran before its host path, from host and from device
+     memory; per-GOP checkpoints:
+     with 3 of the 9 files deleted, a second encode launches K2, K3 and K5
+     for the missing GOPs alone and returns the same stream (host and
+     device GOPs mixed, decoded to the same frames); with intra_qstep
+     changed all nine are encoded again; Encoder(metrics=MetricsLogger,
+     profile=True) writes 9 gop records, one encode_summary and one
+     stage_timings of the stages that apply; device_trace leaves a trace
+     file. VideoReader, VideoWriter, Encoder.encode_video and
+     Decoder.decode_to_file need cv2, which the GPU machine lacks: the CPU
+     tests (tests/test_torch_stream.py) drive them.
 
 K2 has two kernels, chosen by shape in its C entry point: the word kernel
 (block sizes 4, 8, 16 on 4-byte boundaries; all main shapes) and the byte
@@ -153,7 +175,8 @@ of dependent diagonals at the timed shape.
 With --profile the script instead runs each path once on the kernels under
 torch.profiler (encode, decode from host memory and the intra decode of the
 payloads; no .npz), prints the host-clock time of the window, the device
-time in it and its largest rows, and stops without the records below.
+time in it, its largest rows and every copy row (pageable or pinned) with
+their sum, and stops without the records below.
 
 The last two lines of standard output are the kernels' JSON record and the
 device record {"ok": true, "device": {...}}; without a CUDA device the script
@@ -2043,6 +2066,289 @@ def profile_path(frames, card: str, cfg, label: str, rows: int = 10) -> None:
           f"rows ({card}):")
     for key, ms, count in events[:rows]:
         print(f"[profile {label}]   {ms:9.3f} ms  x{count:<4d} {key[:90]}")
+    copies = [(key, ms, count) for key, ms, count in events
+              if key.startswith("Memcpy")]
+    for key, ms, count in copies:
+        print(f"[profile {label}] copy {ms:9.3f} ms  x{count:<4d} {key}")
+    print(f"[profile {label}] memcpy device time "
+          f"{sum(ms for _, ms, _ in copies):.1f} ms ({card})")
+
+
+STREAM_GOP_BATCH = 2          # encode_stream's chunks: 8, 8, 8, 8, 2 frames
+STREAM_DROPPED = (1, 5, 8)    # checkpoints deleted before the resume
+SURVEYED = 17                 # frames of the other paths' sync census
+
+
+class ClipReader:
+    """The clip as a reader: any iterable of frames with an `fps`."""
+    fps = 25.0
+
+    def __init__(self, frames):
+        self.frames = frames
+
+    def __iter__(self):
+        return iter(self.frames)
+
+
+def blocking_decode(video, gop_batch: int = 8, device: str = "cuda") -> list:
+    """The decode as the port ran it before its host path: each batch
+    stacked in host memory and copied up from pageable memory, its frames
+    brought down by a blocking `.cpu()` (full resolution)."""
+    from vcs_h264_tpu_torch.models import pipeline
+    cfg = video.config
+    out, buf = [], []
+
+    def down(planar):
+        out.extend(planar.movedim(-3, -1).contiguous().cpu().numpy())
+
+    def flush():
+        if buf:
+            down(pipeline.decode_gop_batch(type(buf[0]).stack(buf, device),
+                                           cfg).flatten(0, 1))
+            buf.clear()
+
+    for gop in video.gops:
+        gop = gop.without_intra_payload()
+        if gop.num_coded == cfg.gop_len and gop.num_p:
+            buf.append(gop)
+            if len(buf) >= gop_batch:
+                flush()
+            continue
+        flush()
+        if gop.num_p == 0:
+            down(gop.i_frame[None])
+        else:
+            down(pipeline.decode_gop_batch(type(gop).stack([gop], device),
+                                           cfg)[0])
+    flush()
+    return out[:video.num_frames]
+
+
+def watch_syncs(fn):
+    """Run fn under `torch.cuda.set_sync_debug_mode("warn")` -> (its
+    result, seconds, the synchronizing CUDA calls it made as (place,
+    count))."""
+    import warnings
+    import torch
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            t0 = time.perf_counter()
+            out = fn()
+            dt = time.perf_counter() - t0
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    seen = {}
+    for w in caught:
+        if "called a synchronizing CUDA operation" in str(w.message):
+            place = f"{os.path.relpath(w.filename)}:{w.lineno}"
+            seen[place] = seen.get(place, 0) + 1
+    return out, dt, sorted(seen.items())
+
+
+def checkpoint_fingerprints(ckpt: str) -> list:
+    out = []
+    for name in sorted(os.listdir(ckpt)):
+        with np.load(os.path.join(ckpt, name)) as z:
+            out.append(str(z["cfg"][0]))
+    return out
+
+
+def stream_phase(frames, card: str) -> dict:
+    """Phase 6, the streaming path on the main path's configuration
+    (production, intra_qstep 24) with gop_batch 2, so that `encode_stream`
+    takes five chunks of 8, 8, 8, 8 and 2 frames. Its counted run is the
+    overlapped window, `encode_stream` over an in-memory reader and
+    `Decoder.iter_frames` over the stream's copy in host memory, each under
+    `torch.cuda.set_sync_debug_mode("warn")`: it prints every host sync
+    there, and those of the blocking decode as a control (which must show
+    some); then the same census for each of the other paths of phase 5.
+    Then: the stream equals `encode_frames`'s field for field and
+    its .vcs has the same bytes; the frames of `iter_frames` are identical
+    to `decode()`'s and to the decode as it ran before the host path
+    (`blocking_decode`), from host and from device memory; a checkpointed
+    encode under `Encoder(metrics=..., profile=True)` logs 9 gop records,
+    an encode_summary and the stage timings that apply; with three GOP
+    files deleted a second encode launches K2, K3 and K5 only for the
+    missing GOPs and returns the same stream, which decodes to the same
+    frames; with intra_qstep changed, all nine are encoded again;
+    `device_trace` leaves a non-empty trace file. Returns the counted run's
+    launches."""
+    import dataclasses
+    import torch
+    from vcs_h264_tpu_torch import CodecConfig
+    from vcs_h264_tpu_torch.io import bitstream
+    from vcs_h264_tpu_torch.models import Decoder, Encoder
+    from vcs_h264_tpu_torch.utils.metrics import MetricsLogger
+    from vcs_h264_tpu_torch.utils.profiling import device_trace
+
+    label = "stream"
+    t_phase = time.perf_counter()
+    cfg = CodecConfig.production(intra_qstep=QSTEP)
+    video = Encoder(cfg, device="cuda").encode_frames(frames)
+    host = dataclasses.replace(video, gops=[g.to("cpu") for g in video.gops])
+    Encoder(cfg, STREAM_GOP_BATCH, device="cuda").encode_stream(
+        ClipReader(frames[:8]))                                 # warm-up
+    torch.cuda.synchronize()
+
+    reset_counts()
+    streamed, t_enc, sync_enc = watch_syncs(
+        lambda: Encoder(cfg, STREAM_GOP_BATCH, device="cuda").encode_stream(
+            ClipReader(frames)))
+    iterated, t_dec, sync_dec = watch_syncs(
+        lambda: list(Decoder(device="cuda").iter_frames(host)))
+    launches = read_counts()
+    torch.cuda.synchronize()
+    blocked, t_blk, sync_blk = watch_syncs(lambda: blocking_decode(host))
+    for what, dt, syncs in (
+            ("encode_stream (5 chunks, queued)", t_enc, sync_enc),
+            ("iter_frames from host memory", t_dec, sync_dec),
+            ("control, outside the window: the blocking decode from host "
+             "memory", t_blk, sync_blk)):
+        print(f"[{label}] {what}: {dt:.4f} s, host syncs "
+              f"{sum(n for _, n in syncs)} at {len(syncs)} places "
+              f"{syncs} ({card})")
+    print(f"[{label}] the window's kernel launches {launches}")
+    resident = sum(nbytes(t) for g in streamed.gops for t in g._fields()
+                   if t is not None)
+    per_frame = resident / streamed.num_frames
+    total = torch.cuda.get_device_properties(0).total_memory
+    print(f"[{label}] the encoded stream stays on the device: {resident} "
+          f"bytes, {per_frame:.0f} a frame; {total} bytes of device memory "
+          f"hold {total / per_frame / 30 / 60:.2f} minutes of this video at "
+          f"30 fps")
+    if not sync_blk:
+        fail("the sync debug mode saw no sync in the blocking decode")
+    for cfg_p, label_p, _ in main_paths():     # the other paths' syncs
+        if cfg_p == cfg:
+            continue
+        enc = Encoder(cfg_p, STREAM_GOP_BATCH, device="cuda")
+        dec = Decoder(device="cuda")
+        clip = ClipReader(frames[:SURVEYED])
+        enc.encode_stream(clip)                                 # warm-up
+        v, _, s_enc = watch_syncs(lambda: enc.encode_stream(clip))
+        on_host = dataclasses.replace(v, gops=[g.to("cpu") for g in v.gops])
+        list(dec.iter_frames(on_host))                          # warm-up
+        _, _, s_dec = watch_syncs(lambda: list(dec.iter_frames(on_host)))
+        print(f"[{label} census: {label_p}] encode_stream of {SURVEYED} "
+              f"frames, host syncs {sum(n for _, n in s_enc)} at {s_enc}; "
+              f"iter_frames from host memory, host syncs "
+              f"{sum(n for _, n in s_dec)} at {s_dec}")
+    if any(launches[k] == 0 for k in ("sad_search", "fused_p_encode",
+                                      "fused_p_decode", "intra_encode")):
+        fail(f"a kernel of the streaming path was never launched "
+             f"({launches})")
+
+    same_fields(video, streamed, "encode_stream against encode_frames")
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = [os.path.join(tmp, f"{n}.vcs") for n in ("frames", "stream")]
+        bitstream.save_vcs(video, paths[0])
+        bitstream.save_vcs(streamed, paths[1])
+        blobs = [open(p, "rb").read() for p in paths]
+        if blobs[0] != blobs[1]:
+            fail("the streamed .vcs differs from the in-memory stream's")
+        same_fields(video, bitstream.load_vcs(paths[1]), "the streamed .vcs")
+    print(f"[{label}] encode_stream (gop_batch {STREAM_GOP_BATCH}) equals "
+          f"encode_frames field for field in {len(streamed.gops)} GOPs; "
+          f"both .vcs files {len(blobs[1])} bytes, identical")
+
+    decoded = Decoder(device="cuda").decode(video)
+    for what, got in (
+            ("iter_frames from host memory", iterated),
+            ("iter_frames from device memory",
+             list(Decoder(device="cuda").iter_frames(streamed))),
+            ("the blocking decode from host memory", blocked),
+            ("the blocking decode from device memory",
+             blocking_decode(video))):
+        if len(got) != len(frames) or any(
+                not np.array_equal(a, b) for a, b in zip(got, decoded)):
+            fail(f"{what} differs from decode()")
+    print(f"[{label}] iter_frames from host and from device memory, and the "
+          f"blocking decode of both: {len(decoded)} frames identical to "
+          "decode()")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = os.path.join(tmp, "ckpt")
+        log_path = os.path.join(tmp, "metrics.jsonl")
+        logger = MetricsLogger(log_path)
+        first = Encoder(cfg, STREAM_GOP_BATCH, logger, True,
+                        device="cuda").encode_frames(
+                            frames, checkpoint_dir=ckpt)
+        logger.close()
+        same_fields(video, first, "the checkpointed, profiled encode")
+        names = sorted(os.listdir(ckpt))
+        if names != [f"gop_{g:06d}.npz" for g in range(len(video.gops))]:
+            fail(f"checkpoint files {names}")
+        for g in STREAM_DROPPED:
+            os.remove(os.path.join(ckpt, names[g]))
+        full = [g for g in STREAM_DROPPED if g < GOPS]
+        want = -(-len(full) // STREAM_GOP_BATCH) + len(STREAM_DROPPED) \
+            - len(full)
+        reset_counts()
+        resumed = Encoder(cfg, STREAM_GOP_BATCH, device="cuda").encode_frames(
+            frames, checkpoint_dir=ckpt)
+        got = read_counts()
+        expect = {k: (want if k in ("sad_search", "fused_p_encode",
+                                    "intra_encode") else 0) for k in got}
+        if got != expect:
+            fail(f"the resume launched {got}, not {expect}")
+        same_fields(video, resumed, "the resumed encode")
+        where = sorted({g.i_frame.device.type for g in resumed.gops})
+        if any(not np.array_equal(a, b) for a, b in
+               zip(Decoder(device="cuda").decode(resumed), decoded)):
+            fail("the resumed stream decodes to other frames")
+        print(f"[{label}] checkpoints: {len(names)} files; with GOPs "
+              f"{list(STREAM_DROPPED)} deleted the resume launched {got} "
+              f"and returned the same stream (GOPs in {where} memory), "
+              "decoded to the same frames")
+        requant = dataclasses.replace(cfg, intra_qstep=QSTEP + 8)
+        reset_counts()
+        Encoder(requant, STREAM_GOP_BATCH, device="cuda").encode_frames(
+            frames, checkpoint_dir=ckpt)
+        got = read_counts()
+        batches = -(-GOPS // STREAM_GOP_BATCH) + 1
+        if any(got[k] != batches for k in ("sad_search", "fused_p_encode",
+                                           "intra_encode")):
+            fail(f"after intra_qstep changed the encode launched {got}, "
+                 f"not {batches} each of K2, K3, K5")
+        prints = checkpoint_fingerprints(ckpt)
+        if len(prints) != len(names) or any(
+                f'"intra_qstep": {QSTEP + 8}' not in p for p in prints):
+            fail("stale checkpoints were not rewritten")
+        print(f"[{label}] with intra_qstep {QSTEP + 8} all {len(prints)} "
+              f"GOPs were encoded again ({got})")
+
+        with open(log_path) as fh:
+            records = [json.loads(line) for line in fh]
+        events = [r["event"] for r in records]
+        timings = [r for r in records if r["event"] == "stage_timings"]
+        stages = sorted(set(timings[0]) - {"ts", "event"}) if timings else []
+        applies = sorted({"intra_i_encode", "encode_gop_batch",
+                          "checkpoint_write"})
+        if (events.count("gop") != len(video.gops)
+                or events.count("encode_summary") != 1
+                or len(timings) != 1 or stages != applies
+                or any(list(r)[:2] != ["ts", "event"] for r in records)):
+            fail(f"metrics records {events}, stages {stages}")
+        summary = records[events.index("encode_summary")]
+        print(f"[{label}] metrics: {events.count('gop')} gop records, "
+              f"encode_summary {summary['fps']:.2f} fps (profiled, "
+              f"checkpointed), stage_timings ms "
+              f"{ {k: timings[0][k] for k in stages} }")
+
+        trace_dir = os.path.join(tmp, "trace")
+        with device_trace(trace_dir):
+            Decoder(device="cuda").decode(video)
+        traces = [os.path.join(trace_dir, n) for n in os.listdir(trace_dir)]
+        if not traces or not all(os.path.getsize(p) > 0 for p in traces):
+            fail(f"device_trace left {traces}")
+        print(f"[{label}] device_trace wrote {os.path.basename(traces[0])} "
+              f"({os.path.getsize(traces[0])} bytes)")
+    print(f"[{label}] phase {time.perf_counter() - t_phase:.1f} s; "
+          "VideoReader, VideoWriter, encode_video and decode_to_file need "
+          "cv2, which this machine may lack: the CPU tests drive them")
+    return launches
 
 
 LEGACY_VERSIONS = range(3, 11)
@@ -2152,6 +2458,8 @@ def main() -> int:
     for cfg, label, kw in main_paths():
         for k, v in main_path_phase(frames, card, cfg, label, **kw).items():
             launches[k] = launches.get(k, 0) + v
+    for k, v in stream_phase(frames, card).items():
+        launches[k] += v
 
     meta = {
         "compensate": ("vcs_h264_tpu_torch/csrc/motion_comp.cu",

@@ -87,12 +87,20 @@ def test_native_coder_is_loaded():
 
 def test_native_build_writes_only_the_port_build_dir(tmp_path, monkeypatch):
     """A fresh build lands in the build directory under a temporary name
-    first; `native/`, where the JAX package builds, is left as it was."""
+    first; the source's directory is left as it was. The source is a copy
+    in a directory of the test's own: the repository's `native/` may be
+    written meanwhile by the JAX package's `make` in another process, so
+    there only the absence of the port's library names is checked."""
+    import shutil
     native = os.path.join(REPO, "native")
+    src_dir = tmp_path / "native"
+    src_dir.mkdir()
+    shutil.copy(os.path.join(native, "bitstream.cpp"), src_dir)
+    monkeypatch.setattr(bits, "NATIVE_SRC", src_dir / "bitstream.cpp")
 
     def listing():
         return sorted((e.name, e.stat().st_mtime_ns)
-                      for e in os.scandir(native))
+                      for e in os.scandir(src_dir))
 
     before = listing()
     monkeypatch.setattr(bits._build, "BUILD", tmp_path / "build")
@@ -103,6 +111,7 @@ def test_native_build_writes_only_the_port_build_dir(tmp_path, monkeypatch):
     assert out.exists() and sorted(p.name for p in out.parent.iterdir()) \
         == [out.name]
     assert listing() == before
+    assert not [n for n in os.listdir(native) if n.startswith("libvcsbits_")]
     import ctypes
     lib = ctypes.CDLL(str(out))
     for name in bits.NATIVE_SIGNATURES:

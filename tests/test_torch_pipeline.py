@@ -253,9 +253,18 @@ def test_now_ported_modes_run_in_the_entry_points(kwargs, tmp_path, rng):
 
 
 def test_checkpoints_not_ported(rng, tmp_path):
-    with pytest.raises(NotImplementedError):
-        Encoder(CodecConfig.production(), device="cpu").encode_frames(
-            _clip(rng, 2, 16, 16), checkpoint_dir=str(tmp_path))
+    """Checkpoints are ported now (tests/test_torch_checkpoint.py): a
+    checkpointed encode writes one file per GOP and returns the stream an
+    encode without them gives."""
+    frames = _clip(rng, 6, 16, 16)
+    enc = Encoder(CodecConfig.production(), device="cpu")
+    video = enc.encode_frames(frames, checkpoint_dir=str(tmp_path))
+    assert sorted(os.listdir(tmp_path)) == ["gop_000000.npz",
+                                            "gop_000001.npz"]
+    want = enc.encode_frames(frames)
+    for a, b in zip(video.gops, want.gops):
+        assert torch.equal(a.mv, b.mv)
+        assert torch.equal(a.residuals, b.residuals)
 
 
 def test_cuda_device_without_gpu_raises():
@@ -301,6 +310,32 @@ for cfg in (CodecConfig.production(), CodecConfig.production(intra_qstep=24),
         loaded = bitstream.load_vcs(path, device="cpu")
         assert len(Decoder(device="cpu").decode(loaded)) == 8
 assert bitstream.native_loaded()
+import json
+from vcs_h264_tpu_torch.io import video as video_io
+from vcs_h264_tpu_torch.utils import metrics, profiling
+class Reader(list):
+    fps = 10.0
+for cfg in (CodecConfig.production(intra_qstep=24),
+            CodecConfig.production(chroma_420=True, intra_qstep=24)):
+    ckpt = os.path.join(tmp, "ckpt420" if cfg.chroma_420 else "ckpt")
+    log = ckpt + ".jsonl"
+    logger = metrics.MetricsLogger(log)
+    enc = Encoder(cfg, 1, logger, True, device="cpu")
+    video = enc.encode_stream(Reader(frames), checkpoint_dir=ckpt)
+    logger.close()
+    assert sorted(os.listdir(ckpt)) == ["gop_000000.npz", "gop_000001.npz"]
+    resumed = Encoder(cfg, 1, device="cpu").encode_stream(
+        Reader(frames), checkpoint_dir=ckpt)
+    assert [np.array_equal(a, b) for a, b in zip(
+        Decoder(device="cpu").decode(video),
+        Decoder(device="cpu").iter_frames(resumed))] == [True] * 8
+    events = [json.loads(line)["event"] for line in open(log)]
+    assert events.count("gop") == 2 and "stage_timings" in events
+with profiling.device_trace(os.path.join(tmp, "trace")):
+    with profiling.trace_annotation("x"):
+        metrics.psnr_t(torch.ones(4), torch.zeros(4))
+assert os.listdir(os.path.join(tmp, "trace"))
+assert video_io.group_into_gops(frames, 4)[1][1].shape == (3, 16, 32, 3)
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "vcs_h264_tpu", "cv2"))
 launches = {**motion_cuda.LAUNCHES, **inter_cuda.LAUNCHES, **intra_cuda.LAUNCHES}

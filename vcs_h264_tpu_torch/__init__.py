@@ -11,7 +11,10 @@ B-frames and lossy intra) and the legacy unsigned residual of the
 version-3 container (`signed_residual=False`): `Encoder.encode_frames` ->
 `io.bitstream.save_vcs` / `load_vcs` (the range-coded `.vcs` container) or
 `EncodedVideo.save_npz` / `load_npz` -> `Decoder.decode`, plus the intra
-codec of `models.intra_codec`.
+codec of `models.intra_codec`; and the streaming path from video file to
+video file: `Encoder.encode_video` / `encode_stream` with per-GOP
+checkpoints, metrics and stage timings, `Decoder.iter_frames` /
+`decode_to_file`.
 
 Layout:
   config.py   CodecConfig (field for field the JAX package's)
@@ -22,10 +25,13 @@ Layout:
               _build (nvcc)
   csrc/       the CUDA kernels
   models/     gop (.npz container), pipeline, pipeline420, intra_codec,
-              encoder, decoder
+              encoder (checkpoints, hooks, streaming), decoder, host_path
+              (pinned staging and copy streams)
   io/         bitstream (.vcs container: the range coder, native/bitstream.cpp
-              built with g++, and its Python mirror)
-  utils/      metrics
+              built with g++, and its Python mirror), video (cv2 reader and
+              writer, imported inside)
+  utils/      metrics (PSNR, SSIM, sparsity, JSONL logger), profiling
+              (trace ranges, device_trace, StageTimer)
   interop.py  encoded streams to and from the JAX package
 """
 

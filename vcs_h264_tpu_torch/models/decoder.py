@@ -1,5 +1,5 @@
 """Host-side decoder orchestration (counterpart of
-`vcs_h264_tpu/models/decoder.py:22-126`).
+`vcs_h264_tpu/models/decoder.py`).
 
 Full GOPs (I + P + B frames as many as the pattern has) are decoded
 `gop_batch` at a time on the device; a tail GOP on its own, and an
@@ -9,6 +9,15 @@ intra the stored I-frame is already the reconstruction, so the intra
 payload is dropped before any upload: the P-frame decode never reads it.
 A 4:2:0 stream takes the same walk through `models/pipeline420.py`, and
 its I-frame-only GOP is emitted from its stored planes.
+
+`iter_frames` is the streaming core. A stream in host memory goes up
+through `models/host_path.py` (pinned staging, an upload stream); a GOP
+already on the device (an encoder's output) is stacked there. Each batch's
+frames come down into pinned buffers on a download stream, and are yielded,
+as copies, once the next batch's decode is queued: the download and the
+consumer's work on batch k (`decode_to_file`'s cv2 encode) overlap the
+decode of batch k+1. A stream may mix host and device GOPs (a resumed
+encode).
 """
 
 from __future__ import annotations
@@ -21,6 +30,7 @@ import torch
 from vcs_h264_tpu_torch.models import pipeline, pipeline420
 from vcs_h264_tpu_torch.models.encoder import resolve_device
 from vcs_h264_tpu_torch.models.gop import EncodedVideo
+from vcs_h264_tpu_torch.models.host_path import Download, HostPath
 from vcs_h264_tpu_torch.ops.motion import check_backend
 
 
@@ -37,6 +47,7 @@ class Decoder:
         self.device = resolve_device(device)
         self.gop_batch = gop_batch
         self.backend = backend
+        self._host = HostPath(self.device)
 
     def decode(self, video: EncodedVideo) -> List[np.ndarray]:
         """-> list of BGR uint8 [H, W, 3] frames, in stream order."""
@@ -49,9 +60,21 @@ class Decoder:
                 return
             yield frame
 
-    def _host_frames(self, planar: torch.Tensor) -> Iterator[np.ndarray]:
-        """uint8 [N, 3, H, W] on the device -> N host frames [H, W, 3]."""
-        yield from planar.movedim(-3, -1).contiguous().cpu().numpy()
+    def decode_to_file(self, video: EncodedVideo, path: str) -> None:
+        """Stream-decode into a video file (written with cv2): the encode of
+        each batch's frames overlaps the device's decode of the next."""
+        from vcs_h264_tpu_torch.io.video import VideoWriter
+        writer = VideoWriter(path, video.width, video.height, video.fps)
+        try:
+            for f in self.iter_frames(video):
+                writer.write(f)
+        finally:
+            writer.close()
+
+    def _stack(self, gops):
+        """GOPs of one shape as one batch on the device."""
+        return type(gops[0]).stack(gops, self.device,
+                                   upload=self._host.upload_stack)
 
     def _iter_gops(self, video: EncodedVideo) -> Iterator[np.ndarray]:
         cfg = video.config
@@ -61,8 +84,8 @@ class Decoder:
                     batch, cfg, backend=self.backend)
 
             def i_frame(gop):
-                return pipeline420.emit_bgr(gop.i_y.to(self.device),
-                                            gop.i_c.to(self.device))
+                one = self._stack([gop])
+                return pipeline420.emit_bgr(one.i_y, one.i_c)[0]
         else:
             def decode_batch(batch):
                 return pipeline.decode_gop_batch(batch, cfg, self.backend)
@@ -70,13 +93,22 @@ class Decoder:
             def i_frame(gop):
                 return gop.i_frame
         buf: List = []
+        downloads: List[Download] = []
+
+        def emit(planar: torch.Tensor) -> Iterator[np.ndarray]:
+            """Start the download of uint8 [N, 3, H, W] frames; yield the
+            frames of the download before it."""
+            downloads.append(self._host.download(
+                planar.movedim(-3, -1).contiguous()))
+            if len(downloads) > 1:
+                yield from self._frames(downloads.pop(0))
 
         def flush():
             if not buf:
                 return
-            out = decode_batch(type(buf[0]).stack(buf, self.device))
+            out = decode_batch(self._stack(buf))
             buf.clear()
-            yield from self._host_frames(out.flatten(0, 1))
+            yield from emit(out.flatten(0, 1))
 
         for gop in video.gops:
             gop = gop.without_intra_payload()
@@ -87,8 +119,16 @@ class Decoder:
                 continue
             yield from flush()
             if gop.num_p == 0:
-                yield from self._host_frames(i_frame(gop)[None])
+                yield from emit(i_frame(gop)[None])
             else:
-                yield from self._host_frames(decode_batch(
-                    type(gop).stack([gop], self.device))[0])
+                yield from emit(decode_batch(self._stack([gop]))[0])
         yield from flush()
+        while downloads:
+            yield from self._frames(downloads.pop(0))
+
+    @staticmethod
+    def _frames(download: Download) -> Iterator[np.ndarray]:
+        """The frames of a finished download, each a copy: the buffer goes
+        back to the allocator."""
+        for f in download.wait().numpy():
+            yield f.copy()

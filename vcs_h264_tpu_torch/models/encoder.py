@@ -1,5 +1,5 @@
 """Host-side encoder orchestration (counterpart of
-`vcs_h264_tpu/models/encoder.py:149-357`).
+`vcs_h264_tpu/models/encoder.py`).
 
 Frames are grouped into GOPs (frame n is an I-frame when n % gop_len == 0),
 full GOPs are encoded `gop_batch` at a time on the device, and a shorter
@@ -13,21 +13,50 @@ Under `chroma_420` the same grouping feeds `models/pipeline420.py`: each
 batch is ingested to Y and half-resolution chroma planes on the device and
 coded there, lossy intra included, and an I-frame-only GOP stores its
 ingested (or intra-reconstructed) planes.
+
+Frames reach the device through `models/host_path.py`: stacked into pinned
+buffers and copied on an upload stream, so that the upload of one batch
+overlaps the coding of the one before. Encoded GOPs stay on the device.
+
+Per-GOP checkpoints: with `checkpoint_dir`, every encoded GOP is written as
+`gop_{index:06d}.npz` as soon as it is coded, and a GOP already there is
+loaded instead of encoded, unless it was written under another
+configuration (`_cfg_fingerprint`), when it is encoded again. The files are
+key for key and dtype for dtype the JAX package's, and the fingerprint the
+same string, so each package resumes the other's directory. A loaded GOP
+holds host tensors, an encoded one device tensors; the decoder and both
+containers take either.
+
+Metrics and stage timings: with `metrics` (a `utils.metrics.MetricsLogger`)
+each GOP logs its static-block ratio and, with a DCT, its share of nonzero
+coefficients, and each call an `encode_summary`; with `profile=True` the
+stages `intra_i_encode`, `encode_gop_batch`, `encode_gop_batch_420` and
+`checkpoint_write` are timed (`utils.profiling.StageTimer`, which waits for
+the device at each stage's end, so it defeats the overlap: keep it off for
+throughput) and their means logged as `stage_timings`.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional, Sequence, Tuple
+import json
+import os
+import time
+from typing import List, Optional, Sequence
 
 import numpy as np
 import torch
 
 from vcs_h264_tpu_torch.config import CodecConfig
+from vcs_h264_tpu_torch.io.video import group_into_gops
 from vcs_h264_tpu_torch.models import intra_codec, pipeline, pipeline420
-from vcs_h264_tpu_torch.models.gop import (EncodedGOP, EncodedGOP420,
-                                            EncodedVideo)
+from vcs_h264_tpu_torch.models.gop import (NPZ_420, EncodedGOP,
+                                            EncodedGOP420, EncodedVideo)
+from vcs_h264_tpu_torch.models.host_path import HostPath
 from vcs_h264_tpu_torch.ops.motion import check_backend
+from vcs_h264_tpu_torch.utils.profiling import StageTimer, trace_annotation
+
+__all__ = ["Encoder", "group_into_gops", "resolve_device"]
 
 
 def resolve_device(device) -> torch.device:
@@ -43,44 +72,162 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
-def group_into_gops(frames: Sequence[np.ndarray], gop_len: int
-                    ) -> List[Tuple[np.ndarray, np.ndarray]]:
-    """[frames] -> [(i_frame [H, W, 3], p_frames [P, H, W, 3])] with the
-    dispatch `frame_num % gop_len == 0 -> I` (the JAX package's
-    `vcs_h264_tpu/io/video.py:group_into_gops`)."""
-    gops = []
-    for start in range(0, len(frames), gop_len):
-        chunk = frames[start:start + gop_len]
-        i_frame = chunk[0]
-        p = np.stack(chunk[1:]) if len(chunk) > 1 else \
-            np.zeros((0, *i_frame.shape), i_frame.dtype)
-        gops.append((i_frame, p))
-    return gops
+def _cfg_fingerprint(cfg: CodecConfig) -> str:
+    """Stable string of every knob that changes what a checkpointed GOP
+    contains, the same string as the JAX package's. A checkpoint written
+    under another fingerprint is encoded again, never reused: the
+    lossy-intra payload, for one, depends on intra_qstep."""
+    return json.dumps(dict(
+        block_size=cfg.block_size, gop_pattern=",".join(cfg.gop_pattern),
+        search_reach=cfg.search_reach, search_step=cfg.search_step,
+        static_threshold=cfg.static_threshold,
+        quality_factor=cfg.quality_factor, with_dct=cfg.with_dct,
+        with_residual=cfg.with_residual, quant_mode=cfg.quant_mode,
+        intra_i=cfg.intra_i, intra_qstep=cfg.intra_qstep,
+        chroma_420=cfg.chroma_420), sort_keys=True)
+
+
+def _np(t: torch.Tensor, dtype) -> np.ndarray:
+    return t.cpu().numpy().astype(dtype, copy=False)
+
+
+def _save_gop_npz(path: str, gop: EncodedGOP, with_dct: bool,
+                  fingerprint: str = "") -> None:
+    """One GOP as the JAX package writes it: `i` uint8, `mv` int16, `cfg`,
+    `res` (uint8 wrap residuals without a DCT, else in the mode's dtype),
+    with B-frames `bmv` int16, `bmode` int8 and `bres`, and with lossy intra
+    `iq` int16, `imodes` int8 and `iesc` bool."""
+    def as_res(res):
+        if res is None:
+            return None
+        res = res.cpu().numpy()
+        return res.astype(np.uint8) if not with_dct else res
+
+    arrays = dict(i=_np(gop.i_frame, np.uint8), mv=_np(gop.mv, np.int16),
+                  cfg=np.array([fingerprint]))
+    res = as_res(gop.residuals)
+    if res is not None:
+        arrays["res"] = res
+    if gop.b_mv is not None:
+        arrays["bmv"] = _np(gop.b_mv, np.int16)
+        arrays["bmode"] = _np(gop.b_mode, np.int8)
+        bres = as_res(gop.b_residuals)
+        if bres is not None:
+            arrays["bres"] = bres
+    if gop.i_qcoef is not None:
+        arrays["iq"] = _np(gop.i_qcoef, np.int16)
+        arrays["imodes"] = _np(gop.i_modes, np.int8)
+        arrays["iesc"] = _np(gop.i_escape, bool)
+    np.savez_compressed(path, **arrays)
+
+
+def _save_gop_npz_420(path: str, gop: EncodedGOP420,
+                      fingerprint: str = "") -> None:
+    """One 4:2:0 GOP as the JAX package writes it: `y`, `c`, `mv`, `cfg`,
+    then each field present under its `.npz` key and stored dtype
+    (`models.gop.NPZ_420`)."""
+    arrays = dict(y=_np(gop.i_y, np.uint8), c=_np(gop.i_c, np.uint8),
+                  mv=_np(gop.mv, np.int16), cfg=np.array([fingerprint]))
+    for name, (key, stored, _) in NPZ_420.items():
+        v = getattr(gop, name)
+        if v is not None and key not in arrays:
+            arrays[key] = _np(v, stored)
+    np.savez_compressed(path, **arrays)
+
+
+def _stored_fingerprint(data) -> Optional[str]:
+    return str(data["cfg"][0]) if "cfg" in data.files else None
+
+
+def _load_gop_npz(path: str, fingerprint: str = "") -> Optional[EncodedGOP]:
+    """A checkpointed GOP as host tensors in `EncodedVideo.load_npz`'s
+    dtypes, or None when it was written under another fingerprint."""
+    with np.load(path) as data:
+        if fingerprint and _stored_fingerprint(data) != fingerprint:
+            return None
+
+        def opt(key, dtype=None):
+            if key not in data.files:
+                return None
+            v = data[key]
+            return torch.from_numpy(v if dtype is None else v.astype(dtype))
+
+        gop = EncodedGOP(i_frame=opt("i", np.uint8), mv=opt("mv", np.int32),
+                         residuals=opt("res"))
+        if "bmv" in data.files:
+            gop = dataclasses.replace(
+                gop, b_mv=opt("bmv", np.int32), b_mode=opt("bmode", np.int8),
+                b_residuals=opt("bres"))
+        if "iq" in data.files:
+            gop = dataclasses.replace(
+                gop, i_qcoef=opt("iq", np.int16),
+                i_modes=opt("imodes", np.int8), i_escape=opt("iesc", bool))
+        return gop
+
+
+def _load_gop_npz_420(path: str, fingerprint: str = ""
+                      ) -> Optional[EncodedGOP420]:
+    """A checkpointed 4:2:0 GOP as host tensors in `EncodedVideo.load_npz`'s
+    dtypes, or None when it was written under another fingerprint."""
+    with np.load(path) as data:
+        if fingerprint and _stored_fingerprint(data) != fingerprint:
+            return None
+        return EncodedGOP420(**{
+            name: (torch.from_numpy(data[key].astype(mem))
+                   if key in data.files else None)
+            for name, (key, _, mem) in NPZ_420.items()})
 
 
 class Encoder:
-    """Encode BGR uint8 frames on `device` ("cuda" by default). `cfg` and
-    `gop_batch` are the JAX package's positional parameters, in its order;
-    `device` and `backend` are the port's own and keyword-only.
+    """Encode BGR uint8 frames on `device` ("cuda" by default). `cfg`,
+    `gop_batch`, `metrics` and `profile` are the JAX package's positional
+    parameters, in its order; `device` and `backend` are the port's own and
+    keyword-only.
 
+    metrics: a `utils.metrics.MetricsLogger` (anything with `log(event,
+    **fields)`), or None.
+    profile: time each stage (see the module's docstring).
     backend: "auto" (CUDA kernels on a GPU, plain PyTorch on the CPU) or
     "plain" (the plain PyTorch versions on any device)."""
 
     def __init__(self, cfg: CodecConfig = CodecConfig(), gop_batch: int = 8,
-                 *, device="cuda", backend: str = "auto"):
+                 metrics=None, profile: bool = False, *, device="cuda",
+                 backend: str = "auto"):
         if gop_batch < 1:
             raise ValueError("gop_batch must be >= 1")
+        if metrics is not None and not callable(getattr(metrics, "log",
+                                                        None)):
+            raise TypeError(f"metrics must have a log method, got "
+                            f"{metrics!r}")
+        if not isinstance(profile, bool):
+            raise TypeError(f"profile must be a bool, got {profile!r}")
         check_backend(backend)
         self.cfg = cfg
         self.device = resolve_device(device)
         self.gop_batch = gop_batch
         self.backend = backend
+        self.metrics = metrics
+        self.stage_timer = StageTimer() if profile else None
+        self._host = HostPath(self.device)
 
-    def _upload(self, hwc: np.ndarray) -> torch.Tensor:
-        """uint8 [..., H, W, 3] host frames -> planar [..., 3, H, W] on the
-        device (uint8 crosses the host link, 4x less than int32)."""
-        t = torch.from_numpy(np.ascontiguousarray(hwc, dtype=np.uint8))
-        return t.to(self.device).movedim(-1, -3).contiguous()
+    def _stage(self, name: str):
+        """Profiler-annotated (and, with profile=True, timed) stage scope."""
+        if self.stage_timer is not None:
+            return self.stage_timer.stage(name)
+        return trace_annotation(name)
+
+    def _upload(self, frames: Sequence[np.ndarray], lead) -> torch.Tensor:
+        """uint8 host frames [H, W, 3] -> planar [*lead, 3, H, W] on the
+        device, stacked once, straight into the staging buffer."""
+        t = self._host.upload_frames(frames)
+        return t.view(*lead, *t.shape[1:]).movedim(-1, -3).contiguous()
+
+    def _upload_batch(self, grouped, idxs):
+        """The I-frames [B, 3, H, W] and the other frames [B, F, 3, H, W] of
+        the GOPs `idxs` on the device."""
+        return (self._upload([grouped[i][0] for i in idxs], (len(idxs),)),
+                self._upload([f for i in idxs for f in grouped[i][1]],
+                             (len(idxs), self.cfg.gop_len - 1)))
 
     def _code_i_frames(self, i_b: torch.Tensor):
         """uint8 [B, 3, H, W] I-frames -> (the frames the P-frames reference,
@@ -95,16 +242,18 @@ class Encoder:
                        for b in range(i_b.shape[0])]
 
     def encode_frames(self, frames: Sequence[np.ndarray], fps: float = 25.0,
-                      checkpoint_dir: Optional[str] = None) -> EncodedVideo:
+                      checkpoint_dir: Optional[str] = None,
+                      gop_index_offset: int = 0) -> EncodedVideo:
         """Encode BGR uint8 frames [H, W, 3] of one shape, H and W multiples
         of the block size (of twice the block size under `chroma_420`: the
-        half-resolution chroma planes hold whole transform blocks)."""
-        if checkpoint_dir is not None:
-            raise NotImplementedError(
-                "vcs_h264_tpu_torch does not port per-GOP checkpoints yet "
-                "(ROADMAP M5)")
+        half-resolution chroma planes hold whole transform blocks).
+
+        gop_index_offset: the index of the first GOP of `frames` in the
+        whole video, which names its checkpoint file (a stream encoded in
+        chunks, or by several processes into one directory)."""
         if not len(frames):
             raise ValueError("no frames to encode")
+        t_start = time.perf_counter()
         cfg = self.cfg
         h, w, _ = frames[0].shape
         bs = cfg.block_size
@@ -113,64 +262,125 @@ class Encoder:
                              "twice the block size, under chroma_420")
         if h % bs or w % bs:
             raise ValueError(f"frame {h}x{w} must be a multiple of block {bs}")
-        grouped = group_into_gops(frames, cfg.gop_len)
+        # (I-frame, [P/B-frames]) per GOP, as group_into_gops groups them,
+        # without its copy: the frames are stacked once, for the upload
+        grouped = [(frames[s], frames[s + 1:s + cfg.gop_len])
+                   for s in range(0, len(frames), cfg.gop_len)]
+        if checkpoint_dir:
+            os.makedirs(checkpoint_dir, exist_ok=True)
+
+        def ckpt_path(idx: int) -> Optional[str]:
+            return (os.path.join(
+                checkpoint_dir, f"gop_{idx + gop_index_offset:06d}.npz")
+                if checkpoint_dir else None)
+
+        fingerprint = _cfg_fingerprint(cfg)
+        load_ckpt = _load_gop_npz_420 if cfg.chroma_420 else _load_gop_npz
+        encoded: List = [None] * len(grouped)
+        pending = []
+        for idx in range(len(grouped)):
+            path = ckpt_path(idx)
+            gop = (load_ckpt(path, fingerprint)
+                   if path and os.path.exists(path) else None)
+            if gop is not None:
+                encoded[idx] = gop
+            else:
+                pending.append(idx)
+
         # full GOPs are batched (with their B-frames under a B pattern); a
         # shorter tail GOP, coded all-P, or any GOP with no P-frame (an
         # all-I pattern), is coded on its own
-        is_full = [p.shape[0] == cfg.gop_len - 1 > 0 for _, p in grouped]
-        full = [i for i, f in enumerate(is_full) if f]
-        tail = [i for i, f in enumerate(is_full) if not f]
-        encoded: List[Optional[EncodedGOP]] = [None] * len(grouped)
+        full = [i for i in pending
+                if len(grouped[i][1]) == cfg.gop_len - 1 > 0]
+        tail = [i for i in pending if i not in full]
         if cfg.chroma_420:
-            self._encode_420(grouped, full, tail, encoded)
-            return EncodedVideo(config=cfg, height=h, width=w, fps=fps,
-                                num_frames=len(frames), gops=encoded)
+            self._encode_420(grouped, full, tail, encoded, ckpt_path,
+                             fingerprint)
+        else:
+            self._encode_full_res(grouped, full, tail, encoded, ckpt_path,
+                                  fingerprint)
+        video = EncodedVideo(config=cfg, height=h, width=w, fps=fps,
+                             num_frames=len(frames), gops=encoded)
+        self._log_summary(len(frames), len(encoded),
+                          time.perf_counter() - t_start)
+        return video
 
-        for start in range(0, len(full), self.gop_batch):
-            idxs = full[start:start + self.gop_batch]
-            i_b, payloads = self._code_i_frames(
-                self._upload(np.stack([grouped[i][0] for i in idxs])))
-            p_b = self._upload(np.stack([grouped[i][1] for i in idxs]))
-            out = pipeline.encode_gop_batch(i_b, p_b, cfg, self.backend)
-            for bi, idx in enumerate(idxs):
-                encoded[idx] = dataclasses.replace(out.select(bi),
-                                                   **payloads[bi])
-
-        for idx in tail:
-            i_f, p_f = grouped[idx]
-            i_b, payloads = self._code_i_frames(self._upload(i_f[None]))
-            if p_f.shape[0] == 0:
-                gop = EncodedGOP(
-                    i_frame=i_b[0],
-                    mv=torch.zeros((0, h // bs, w // bs, 2), dtype=torch.int32,
-                                   device=self.device),
-                    residuals=None)
-            else:
-                gop = pipeline.encode_gop(i_b[0], self._upload(p_f), cfg,
-                                          self.backend)
-            encoded[idx] = dataclasses.replace(gop, **payloads[0])
-        return EncodedVideo(config=cfg, height=h, width=w, fps=fps,
-                            num_frames=len(frames), gops=encoded)
-
-    def _encode_420(self, grouped, full, tail, encoded) -> None:
-        """4:2:0: full GOPs batched, a shorter tail GOP as a batch of one,
-        an I-frame-only GOP from its ingested planes."""
+    def _encode_full_res(self, grouped, full, tail, encoded, ckpt_path,
+                         fingerprint) -> None:
         cfg = self.cfg
         for start in range(0, len(full), self.gop_batch):
             idxs = full[start:start + self.gop_batch]
-            out = pipeline420.encode_gop_batch_420(
-                self._upload(np.stack([grouped[i][0] for i in idxs])),
-                self._upload(np.stack([grouped[i][1] for i in idxs])),
-                cfg, self.backend)
+            i_b, p_b = self._upload_batch(grouped, idxs)
+            payloads = [{} for _ in idxs]
+            if cfg.intra_qstep:
+                with self._stage("intra_i_encode") as box:
+                    i_b, payloads = self._code_i_frames(i_b)
+                    if box is not None:
+                        box["result"] = i_b
+            with self._stage("encode_gop_batch") as box:
+                out = pipeline.encode_gop_batch(i_b, p_b, cfg, self.backend)
+                if box is not None:
+                    box["result"] = out
             for bi, idx in enumerate(idxs):
-                encoded[idx] = out.select(bi)
+                gop = dataclasses.replace(out.select(bi), **payloads[bi])
+                encoded[idx] = gop
+                self._log_gop(idx, gop)
+                if ckpt_path(idx):
+                    with self._stage("checkpoint_write"):
+                        _save_gop_npz(ckpt_path(idx), gop, cfg.with_dct,
+                                      fingerprint)
 
         for idx in tail:
             i_f, p_f = grouped[idx]
-            i_b = self._upload(i_f[None])
-            if p_f.shape[0]:
-                encoded[idx] = pipeline420.encode_gop_batch_420(
-                    i_b, self._upload(p_f[None]), cfg, self.backend).select(0)
+            i_b, payloads = self._code_i_frames(self._upload([i_f], (1,)))
+            if not len(p_f):
+                h, w = i_f.shape[:2]
+                gop = EncodedGOP(
+                    i_frame=i_b[0],
+                    mv=torch.zeros((0, h // cfg.block_size,
+                                    w // cfg.block_size, 2),
+                                   dtype=torch.int32, device=self.device),
+                    residuals=None)
+            else:
+                gop = pipeline.encode_gop(
+                    i_b[0], self._upload(p_f, (len(p_f),)), cfg,
+                    self.backend)
+            gop = dataclasses.replace(gop, **payloads[0])
+            encoded[idx] = gop
+            self._log_gop(idx, gop)
+            if ckpt_path(idx):
+                _save_gop_npz(ckpt_path(idx), gop, cfg.with_dct, fingerprint)
+
+    def _encode_420(self, grouped, full, tail, encoded, ckpt_path,
+                    fingerprint) -> None:
+        """4:2:0: full GOPs batched, a shorter tail GOP as a batch of one,
+        an I-frame-only GOP from its ingested planes."""
+        cfg = self.cfg
+
+        def finish(idx, gop):
+            encoded[idx] = gop
+            self._log_gop(idx, gop)
+            if ckpt_path(idx):
+                _save_gop_npz_420(ckpt_path(idx), gop, fingerprint)
+
+        for start in range(0, len(full), self.gop_batch):
+            idxs = full[start:start + self.gop_batch]
+            i_b, p_b = self._upload_batch(grouped, idxs)
+            with self._stage("encode_gop_batch_420") as box:
+                out = pipeline420.encode_gop_batch_420(i_b, p_b, cfg,
+                                                       self.backend)
+                if box is not None:
+                    box["result"] = out
+            for bi, idx in enumerate(idxs):
+                finish(idx, out.select(bi))
+
+        for idx in tail:
+            i_f, p_f = grouped[idx]
+            i_b = self._upload([i_f], (1,))
+            if len(p_f):
+                finish(idx, pipeline420.encode_gop_batch_420(
+                    i_b, self._upload(p_f, (1, len(p_f))), cfg,
+                    self.backend).select(0))
                 continue
             h, w = i_f.shape[:2]
             y, c = pipeline420.ingest_420(i_b)
@@ -178,9 +388,93 @@ class Encoder:
             if cfg.intra_qstep:
                 (y, c), payload = pipeline420.encode_intra_420(
                     y, c, cfg.intra_qstep, self.backend)
-            encoded[idx] = EncodedGOP420(
+            finish(idx, EncodedGOP420(
                 i_y=y, i_c=c,
                 mv=torch.zeros((1, 0, h // cfg.block_size,
                                 w // cfg.block_size, 2), dtype=torch.int32,
                                device=self.device),
-                res_y=None, res_c=None, **payload).select(0)
+                res_y=None, res_c=None, **payload).select(0))
+
+    def _log_gop(self, idx: int, gop) -> None:
+        """A `gop` record: the share of blocks with a zero vector in every
+        P-frame and, with a DCT, the share of nonzero coefficients (a proxy
+        for the bits). Reads the GOP back to the host."""
+        if not self.metrics:
+            return
+        mv = gop.mv.cpu().numpy()
+        n_blocks = max(1, mv.shape[0] * mv.shape[1] * mv.shape[2]) \
+            if mv.ndim >= 3 else 1
+        static = int(np.sum(np.all(mv == 0, axis=-1))) if mv.size else 0
+        rec = {"gop": idx, "static_block_ratio": static / n_blocks}
+        res = getattr(gop, "residuals", None)
+        if res is None:
+            res = getattr(gop, "res_y", None)
+        if res is not None and self.cfg.with_dct:
+            res = res.cpu().numpy()
+            nz = int(np.count_nonzero(np.round(res)))
+            rec["nonzero_coeff_ratio"] = nz / res.size
+        self.metrics.log("gop", **rec)
+
+    def _log_summary(self, n_frames: int, n_gops: int, dt: float) -> None:
+        """The `encode_summary` record and, when profiling, the mean
+        milliseconds of each stage as `stage_timings`."""
+        if not self.metrics:
+            return
+        self.metrics.log("encode_summary", frames=n_frames, seconds=dt,
+                         fps=n_frames / dt, gops=n_gops)
+        if self.stage_timer is not None and self.stage_timer.totals:
+            self.metrics.log("stage_timings", **{
+                k: round(v["mean_ms"], 3)
+                for k, v in self.stage_timer.summary().items()})
+
+    def encode_video(self, path: str, max_frames: Optional[int] = None,
+                     checkpoint_dir: Optional[str] = None) -> EncodedVideo:
+        """Encode a video file (read with cv2). With `checkpoint_dir` every
+        frame is read first, as resuming wants the whole frame list."""
+        from vcs_h264_tpu_torch.io.video import VideoReader
+        # 4:2:0 needs dims divisible by 2*bs (half-res chroma DCT blocks)
+        mult = self.cfg.block_size * (2 if self.cfg.chroma_420 else 1)
+        reader = VideoReader(path, block_multiple=mult,
+                             max_frames=max_frames)
+        if checkpoint_dir:
+            frames = reader.read_all()
+            return self.encode_frames(frames, fps=reader.fps,
+                                      checkpoint_dir=checkpoint_dir)
+        return self.encode_stream(reader)
+
+    def encode_stream(self, reader, *,
+                      checkpoint_dir: Optional[str] = None) -> EncodedVideo:
+        """Streaming encode of any iterable of frames with an `fps`
+        attribute, in chunks of `gop_batch` GOPs: the reader's work on the
+        next chunk (a video reader's decode, the host's stacking) and its
+        upload overlap the device's coding of this one, whose GOPs stay on
+        the device. With `checkpoint_dir` each chunk's GOPs are
+        checkpointed under their index in the whole stream."""
+        cfg = self.cfg
+        chunk = self.gop_batch * cfg.gop_len
+        gops: List = []
+        total = 0
+        height = width = None
+        buf: List[np.ndarray] = []
+
+        def flush():
+            nonlocal total, height, width
+            if not buf:
+                return
+            v = self.encode_frames(buf, fps=reader.fps,
+                                   checkpoint_dir=checkpoint_dir,
+                                   gop_index_offset=len(gops))
+            gops.extend(v.gops)
+            total += len(buf)
+            height, width = v.height, v.width
+            buf.clear()
+
+        for frame in reader:
+            buf.append(frame)
+            if len(buf) == chunk:
+                flush()
+        flush()
+        if total == 0:
+            raise ValueError("no frames to encode")
+        return EncodedVideo(config=cfg, height=height, width=width,
+                            fps=reader.fps, num_frames=total, gops=gops)

@@ -81,11 +81,22 @@ class _GOPFields:
         return dataclasses.replace(self, **{k: None for k in self.PAYLOAD})
 
     @classmethod
-    def stack(cls, gops: Sequence, device):
-        """Batch GOPs of one shape onto `device`."""
-        fields = zip(*(g._fields() for g in gops))
-        return cls(*(None if vs[0] is None
-                     else torch.stack(vs).to(device) for vs in fields))
+    def stack(cls, gops: Sequence, device, upload=None):
+        """Batch GOPs of one shape onto `device`. A field whose tensors are
+        all in host memory is stacked there and moved in one copy, or goes
+        through `upload` (host tensors -> their stack on the device) when
+        one is given; a field already on the device is stacked there; a
+        mix moves tensor by tensor."""
+        device = torch.device(device)
+
+        def one(vs):
+            if vs[0] is None:
+                return None
+            if all(v.device.type == "cpu" for v in vs):
+                return upload(vs) if upload else torch.stack(vs).to(device)
+            return torch.stack([v.to(device) for v in vs])
+
+        return cls(*(one(vs) for vs in zip(*(g._fields() for g in gops))))
 
 
 @dataclasses.dataclass

@@ -94,6 +94,18 @@ def gop_layout(gop_pattern):
     return anchors, b_pos, prev_slot, next_slot, p_sel, b_sel
 
 
+def take_frames(x: torch.Tensor, idx) -> torch.Tensor:
+    """x[:, idx] for a tuple of frame indices, stacked slice by slice:
+    indexing a CUDA tensor with a list uploads the list, a host sync."""
+    return torch.stack([x[:, i] for i in idx], dim=1)
+
+
+def put_frames(out: torch.Tensor, idx, values: torch.Tensor) -> None:
+    """out[:, idx] = values, slice by slice (no host sync)."""
+    for k, i in enumerate(idx):
+        out[:, i] = values[:, k]
+
+
 def _signed_dct(cfg: CodecConfig) -> bool:
     """The production residual: signed, through the RCT and a rounded DCT."""
     return cfg.with_dct and cfg.quant_mode == "rounded" and cfg.signed_residual
@@ -196,8 +208,8 @@ def _b_refs(anchors, cfg: CodecConfig):
     every B-frame, [B*NB, C, H, W] each (flattened (gop, B-frame) axis)."""
     _, _, prev_slot, next_slot, _, _ = gop_layout(cfg.gop_pattern)
     fsh = anchors.shape[2:]
-    return (anchors[:, list(prev_slot)].reshape(-1, *fsh),
-            anchors[:, list(next_slot)].reshape(-1, *fsh))
+    return (take_frames(anchors, prev_slot).reshape(-1, *fsh),
+            take_frames(anchors, next_slot).reshape(-1, *fsh))
 
 
 def _b_predict_batch(anchors, b_mv, b_mode, cfg: CodecConfig,
@@ -223,7 +235,7 @@ def encode_gop_batch(i_frames: torch.Tensor, p_frames: torch.Tensor,
     use_b = cfg.has_b and p_frames.shape[1] == cfg.gop_len - 1
     if use_b:
         _, _, _, _, p_sel, b_sel = gop_layout(cfg.gop_pattern)
-        p_f = p_frames[:, list(p_sel)]
+        p_f = take_frames(p_frames, p_sel)
     else:
         p_f = p_frames
     mv = _search(p_f, i_frames, cfg, backend)          # [B, NP, nbh, nbw, 2]
@@ -247,7 +259,7 @@ def encode_gop_batch(i_frames: torch.Tensor, p_frames: torch.Tensor,
             return EncodedGOP(i_frame=i_frames, mv=mv, residuals=resid)
         dec_p = _apply_residual(recon, resid, cfg)
 
-    b_f = p_frames[:, list(b_sel)]                     # [B, NB, C, H, W]
+    b_f = take_frames(p_frames, b_sel)                 # [B, NB, C, H, W]
     bb, nb = b_f.shape[:2]
     prev_r, next_r = _b_refs(torch.cat([i_frames[:, None], dec_p], dim=1),
                              cfg)
@@ -294,8 +306,8 @@ def decode_gop_batch(gop: EncodedGOP, cfg: CodecConfig,
     out_b = _apply_residual(pred, b_res, cfg).reshape(bb, nb, *fsh)
     out = torch.empty((bb, cfg.gop_len, *fsh), dtype=torch.uint8,
                       device=anchors.device)
-    out[:, list(anchor_pos)] = anchors
-    out[:, list(b_pos)] = out_b
+    put_frames(out, anchor_pos, anchors)
+    put_frames(out, b_pos, out_b)
     return out
 
 

@@ -33,7 +33,8 @@ import torch
 from vcs_h264_tpu_torch.config import CodecConfig
 from vcs_h264_tpu_torch.models import intra_codec
 from vcs_h264_tpu_torch.models.gop import EncodedGOP420
-from vcs_h264_tpu_torch.models.pipeline import _bi_average, gop_layout
+from vcs_h264_tpu_torch.models.pipeline import (_bi_average, gop_layout,
+                                                put_frames, take_frames)
 from vcs_h264_tpu_torch.ops import (color, inter_cuda, intra, motion,
                                     subsample)
 from vcs_h264_tpu_torch.ops.quant import quant_tables
@@ -114,7 +115,7 @@ def _b_refs(anch_y, anch_c, cfg: CodecConfig):
     _, _, prev_slot, next_slot, _, _ = gop_layout(cfg.gop_pattern)
 
     def pick(x, slots):
-        return x[:, list(slots)].flatten(0, 1)
+        return take_frames(x, slots).flatten(0, 1)
 
     return (pick(anch_y, prev_slot), pick(anch_y, next_slot),
             pick(anch_c, prev_slot), pick(anch_c, next_slot))
@@ -193,8 +194,8 @@ def encode_gop_batch_420(i_frames: torch.Tensor, p_frames: torch.Tensor,
     use_b = cfg.has_b and p_frames.shape[1] == cfg.gop_len - 1
     if use_b:
         _, _, _, _, p_sel, b_sel = gop_layout(cfg.gop_pattern)
-        y_b, c_b = y_p[:, list(b_sel)], c_p[:, list(b_sel)]
-        y_p, c_p = y_p[:, list(p_sel)], c_p[:, list(p_sel)]
+        y_b, c_b = take_frames(y_p, b_sel), take_frames(c_p, b_sel)
+        y_p, c_p = take_frames(y_p, p_sel), take_frames(c_p, p_sel)
 
     payload = {}
     if cfg.intra_qstep:
@@ -262,10 +263,10 @@ def decode_gop_batch_420(gop: EncodedGOP420, cfg: CodecConfig,
                        gop.bres_c.flatten(0, 1), qc)
         yo = y.new_empty((bb, cfg.gop_len, *y.shape[2:]))
         co = c.new_empty((bb, cfg.gop_len, *c.shape[2:]))
-        yo[:, list(anchor_pos)] = y
-        co[:, list(anchor_pos)] = c
-        yo[:, list(b_pos)] = by.reshape(bb, nb, *by.shape[1:])
-        co[:, list(b_pos)] = bc.reshape(bb, nb, *bc.shape[1:])
+        put_frames(yo, anchor_pos, y)
+        put_frames(co, anchor_pos, c)
+        put_frames(yo, b_pos, by.reshape(bb, nb, *by.shape[1:]))
+        put_frames(co, b_pos, bc.reshape(bb, nb, *bc.shape[1:]))
         y, c = yo, co
     if not as_bgr:
         return y, c

@@ -30,7 +30,10 @@ def dct_matrix_np(n: int) -> np.ndarray:
     return m
 
 
+@functools.lru_cache(maxsize=None)
 def dct_matrix(n: int, device=None) -> torch.Tensor:
+    """float32 [n, n], made once per size and device (on a GPU each upload
+    is a host sync); shared by every caller, so none may write to it."""
     return torch.tensor(dct_matrix_np(n), dtype=torch.float32, device=device)
 
 

@@ -44,7 +44,13 @@ BS = 8
 def _const(v: float, like: torch.Tensor) -> torch.Tensor:
     # A float32 tensor on the input's device: dividing by a Python scalar on
     # a GPU multiplies by its reciprocal, which is not IEEE division.
-    return torch.tensor(v, dtype=torch.float32, device=like.device)
+    return _const_on(v, like.device)
+
+
+@functools.lru_cache(maxsize=None)
+def _const_on(v: float, device: torch.device) -> torch.Tensor:
+    # one upload per value and device (on a GPU each is a host sync); shared
+    return torch.tensor(v, dtype=torch.float32, device=device)
 
 
 def signed_bgr_to_ycc(resid: torch.Tensor) -> torch.Tensor:

@@ -56,8 +56,11 @@ def quant_tables_np(qf: float):
     return qy, qc
 
 
+@functools.lru_cache(maxsize=None)
 def quant_tables(qf: float, device=None) -> torch.Tensor:
-    """Stacked float32 [3, 8, 8] table for (Y, Cr, Cb) channel order."""
+    """Stacked float32 [3, 8, 8] table for (Y, Cr, Cb) channel order, made
+    once per quality and device: on a GPU each upload is a host sync. Every
+    caller shares the tensor, so none may write to it."""
     qy, qc = quant_tables_np(qf)
     return torch.tensor(np.stack([qy, qc, qc]), dtype=torch.float32,
                         device=device)
