@@ -153,6 +153,29 @@ package. Phases, each of which exits nonzero on failure:
      file. VideoReader, VideoWriter, Encoder.encode_video and
      Decoder.decode_to_file need cv2, which the GPU machine lacks: the CPU
      tests (tests/test_torch_stream.py) drive them.
+  7. the study functions and single-frame wrappers (`study_phase`) on one
+     1280x720 frame of the clip, on the card against the same call on the
+     CPU (the plain versions): luma4x4, luma16x16 and chroma8x8 (plain
+     PyTorch on both), intra_encode4x4_lossy (K5) -> intra_decode4x4_lossy
+     (K6), luma4x4_codec -> intra_decode4x4 (K6 unclipped, the plane back),
+     motion_search and motion_search_batch (K2), motion_compensate (K1):
+     integers identical; chroma_420_roundtrip +-1 on fewer than 1e-4 of
+     samples, dct2_plane within 1e-3; each function's host-clock ms;
+  8. the CLI's cores with no cv2 (`cli_phase`): the encode core of the main
+     path into .vcs (bytes equal to Encoder -> save_vcs's, 4 695 189 at seed
+     0) and the decode core of that file (frames equal to Decoder.decode's),
+     their fps beside Encoder / Decoder called directly in the same call;
+     the roundtrip core with profile and metrics; the encode core under
+     --chroma-420 (K7 and the bare-plane pair), bytes equal to the direct
+     encode's;
+  9. the GOP axis across processes (`distributed_phase`): two ranks of this
+     script (`--dist-rank`) on the one card meet at a store on localhost
+     (gloo), encode their spans of the main path into one checkpoint
+     directory, and rank 0 assembles the .vcs: both exit 0 within 180 s,
+     the bytes equal the one-process .vcs, rank 0's assembling pass
+     launches no K2, K3 or K5; the wall time beside the one-process encode.
+     The ranks' launches are added to the kernels' record, as are phases 7
+     and 8's.
 
 K2 has two kernels, chosen by shape in its C entry point: the word kernel
 (block sizes 4, 8, 16 on 4-byte boundaries; all main shapes) and the byte
@@ -188,6 +211,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -2389,6 +2413,416 @@ def legacy_vcs_phase(card: str) -> None:
             fail(f"legacy v{version} decodes outside +-1 on 5e-3 of values")
 
 
+STUDY_QSTEP = QSTEP
+
+
+def timed_cuda(fn):
+    """(fn's result, host-clock ms of the call, ended by a device sync)."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def study_phase(frames, card: str) -> dict:
+    """Phase 7, the study functions and single-frame wrappers on one
+    1280x720 frame of the clip (and the three after it for the batched
+    search), each on the card and on the CPU, where it runs the plain
+    versions: the open-loop intra studies (plain PyTorch on both) and the
+    wrappers over K5, K6, K2 and K1 give identical integers, the 4:2:0 round
+    trip is identical or +-1 on fewer than 1e-4 of samples, the blockwise DCT
+    of the luma plane less 128 within 1e-3. Prints each function's
+    host-clock ms on the card. Returns the phase's launches."""
+    import torch
+    from vcs_h264_tpu_torch.ops import color
+
+    label = "study"
+    t_phase = time.perf_counter()
+    bgr = [torch.from_numpy(f).permute(2, 0, 1).to(torch.int32)
+           for f in frames[:4]]
+    y, cr, cb = color.bgr_to_ycrcb_planes(bgr[0])
+    rows = []
+
+    def check(name, fn, cpu_args, compare="equal"):
+        """fn on the card (the arguments moved there) against fn on the
+        CPU: identical, or within the named contract. In the warm-up pass
+        (`warm`) fn runs once on the card and nothing is checked."""
+        dev_args = [a.cuda() if torch.is_tensor(a) else a for a in cpu_args]
+        if warm:
+            out = fn(*dev_args)
+            return out if isinstance(out, tuple) else (out,)
+        got, ms = timed_cuda(lambda: fn(*dev_args))
+        want = fn(*cpu_args)
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        detail = "identical"
+        for a, b in zip(got, want):
+            a = a.cpu()
+            if compare == "equal":
+                if a.dtype != b.dtype or not torch.equal(a, b):
+                    fail(f"{name} on the card differs from the CPU's")
+            elif compare == "420":
+                d = (a - b).abs()
+                share = float((d != 0).double().mean())
+                detail = f"max |diff| {int(d.max())}, share {share:.2e}"
+                if int(d.max()) > 1 or share >= 1e-4:
+                    fail(f"{name}: {detail} outside +-1 on 1e-4")
+            else:
+                err = float((a - b).abs().max())
+                detail = f"max |diff| {err:.2e}"
+                if err > 1e-3:
+                    fail(f"{name}: {detail} above 1e-3")
+        rows.append((name, ms, detail))
+        return got
+
+    for warm in (True, False):        # a warm-up pass, then the checks
+        if not warm:
+            torch.cuda.synchronize()
+            reset_counts()
+        study_calls(check, bgr, y, cr, cb)
+    launches = read_counts()
+    for name, ms, detail in rows:
+        print(f"[{label}] {name}: {ms:.3f} ms on the card (host clock), "
+              f"against the CPU's plain version {detail} ({card})")
+    for k in ("sad_search", "compensate", "intra_encode", "intra_decode"):
+        if launches[k] == 0:
+            fail(f"the study functions never launched {k}")
+    print(f"[{label}] kernel launches {launches}; phase "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+def study_calls(check, bgr, y, cr, cb) -> None:
+    """The calls of `study_phase`, each through `check(name, fn, CPU
+    arguments, contract)`."""
+    import torch
+    from vcs_h264_tpu_torch.ops import dct, intra, motion, subsample
+
+    check("luma4x4", intra.luma4x4, [y])
+    check("luma16x16", intra.luma16x16, [y])
+    check("chroma8x8", intra.chroma8x8, [cr, cb])
+    q, modes, esc, recon = check(
+        "intra_encode4x4_lossy (K5)",
+        lambda p: intra.intra_encode4x4_lossy(p, STUDY_QSTEP), [y])
+    dec = check("intra_decode4x4_lossy (K6)",
+                lambda *a: intra.intra_decode4x4_lossy(*a, STUDY_QSTEP),
+                [q.cpu(), modes.cpu(), esc.cpu()])
+    if not torch.equal(dec[0], recon):
+        fail("intra_decode4x4_lossy differs from the encoder's recon")
+    res, lmodes, lesc = intra.luma4x4_codec(y.cuda())
+    back = check("intra_decode4x4 (K6, unclipped)", intra.intra_decode4x4,
+                 [res.cpu(), lmodes.cpu(), lesc.cpu()])
+    if not torch.equal(back[0].cpu(), y):
+        fail("intra_decode4x4 of luma4x4_codec did not give the plane back")
+    mv = check("motion_search (K2)", motion.motion_search, [bgr[1], bgr[0]])
+    check("motion_search_batch (K2)", motion.motion_search_batch,
+          [torch.stack(bgr[1:4]), bgr[0]])
+    comp = check("motion_compensate (K1)",
+                 lambda m, r: motion.motion_compensate(m, r, 8),
+                 [mv[0].cpu(), bgr[0]])
+    if comp[0].dtype != torch.int32:
+        fail(f"motion_compensate returned {comp[0].dtype} for int32 frames")
+    check("chroma_420_roundtrip", subsample.chroma_420_roundtrip, [bgr[0]],
+          compare="420")
+    check("dct2_plane", lambda p: dct.dct2_plane(p - 128, 8), [y],
+          compare="float")
+
+
+class FrameSink:
+    """The decode core's sink in memory: keeps the frames written."""
+
+    def __init__(self):
+        self.frames = []
+
+    def write(self, frame):
+        self.frames.append(frame)
+
+    def close(self):
+        pass
+
+
+MAIN_VCS_BYTES = 4_695_189    # the main path's .vcs at seed 0 (stream_phase)
+
+
+def direct_encode_vcs(frames, cfg, path: str):
+    """Encoder -> save_vcs on the card -> (stream, encode s, the file's
+    bytes)."""
+    from vcs_h264_tpu_torch.io import bitstream
+    from vcs_h264_tpu_torch.models import Encoder
+    video, ms = timed_cuda(
+        lambda: Encoder(cfg, device="cuda").encode_frames(frames))
+    bitstream.save_vcs(video, path)
+    with open(path, "rb") as fh:
+        return video, ms / 1e3, fh.read()
+
+
+def cli_phase(frames, card: str, seed: int) -> tuple:
+    """Phase 8, the CLI's cores on the card with no cv2, on the clip: the
+    encode core of the main path (production, intra_qstep 24) into .vcs,
+    whose bytes must equal Encoder -> save_vcs's (4 695 189 at seed 0), then
+    the decode core of that file, whose frames must equal Decoder.decode's
+    of the direct file (both decode from host memory; core and direct calls
+    interleaved, core, direct, direct, core, with their fps); the roundtrip core with profile and metrics into a JSONL
+    (9 gop records, an encode_summary, stage_timings, a frame record per
+    frame, a summary); the encode core under --chroma-420 (K7 and the
+    bare-plane pair), bytes equal to the direct encode's. Returns (the
+    phase's launches, the main path's .vcs bytes, the direct encode and
+    save seconds)."""
+    import contextlib
+    import io
+    from vcs_h264_tpu_torch import CodecConfig, cli
+    from vcs_h264_tpu_torch.io import bitstream
+    from vcs_h264_tpu_torch.models import Decoder
+
+    label = "cli"
+    t_phase = time.perf_counter()
+    cfg = CodecConfig.production(intra_qstep=QSTEP)
+    with tempfile.TemporaryDirectory() as tmp, \
+            contextlib.redirect_stdout(io.StringIO()):          # warm-up
+        path = os.path.join(tmp, "warm.vcs")
+        cli.encode_reader(ClipReader(frames), cfg, path, device="cuda")
+        cli.decode_video(cli.load_stream(path, "cuda"), FrameSink(), "memory",
+                         device="cuda")
+    reset_counts()
+    with tempfile.TemporaryDirectory() as tmp:
+        core_path = os.path.join(tmp, "core.vcs")
+        direct_path = os.path.join(tmp, "direct.vcs")
+        times = {"core": [], "direct": []}
+        printed = io.StringIO()
+        for who in ("core", "direct", "direct", "core"):
+            if who == "core":
+                with contextlib.redirect_stdout(printed):
+                    _, _, t_enc = cli.encode_reader(
+                        ClipReader(frames), cfg, core_path, device="cuda")
+                    sink = FrameSink()
+                    t_dec = cli.decode_video(
+                        cli.load_stream(core_path, "cuda"), sink, "memory",
+                        device="cuda")
+                core_frames = sink.frames
+            else:
+                t0 = time.perf_counter()
+                _, t_enc, blob = direct_encode_vcs(frames, cfg, direct_path)
+                t_save = time.perf_counter() - t0 - t_enc
+                loaded = bitstream.load_vcs(direct_path)
+                t0 = time.perf_counter()
+                direct_frames = Decoder(device="cuda").decode(loaded)
+                t_dec = time.perf_counter() - t0
+            times[who].append((t_enc, t_dec))
+        with open(core_path, "rb") as fh:
+            core_blob = fh.read()
+        if core_blob != blob:
+            fail("the encode core's .vcs differs from Encoder -> save_vcs")
+        if seed == 0 and len(blob) != MAIN_VCS_BYTES:
+            fail(f"the main path's .vcs is {len(blob)} bytes, not "
+                 f"{MAIN_VCS_BYTES}")
+        if len(core_frames) != len(frames) or any(
+                not np.array_equal(a, b)
+                for a, b in zip(core_frames, direct_frames)):
+            fail("the decode core's frames differ from Decoder.decode's")
+        lines = [line for line in printed.getvalue().splitlines()
+                 if line.startswith(("encoded ", "decoded "))]
+        print(f"[{label}] the cores printed {lines[:2]}")
+        print(f"[{label}] encode core .vcs {len(core_blob)} bytes, identical "
+              f"to Encoder -> save_vcs; the decode core's {len(core_frames)} "
+              "frames identical to Decoder.decode's")
+        for who, runs in times.items():
+            print(f"[{label}] {who}: encode fps "
+                  f"{[round(len(frames) / e, 2) for e, _ in runs]}, decode "
+                  f"fps {[round(len(frames) / d, 2) for _, d in runs]} "
+                  f"({card})")
+
+        metrics = os.path.join(tmp, "metrics.jsonl")
+        with contextlib.redirect_stdout(printed):
+            _, recon, mean_psnr = cli.roundtrip_frames(
+                frames, 25.0, cfg, profile=True, metrics=metrics,
+                device="cuda")
+        with open(metrics) as fh:
+            events = [json.loads(line)["event"] for line in fh]
+        want = {"gop": -(-len(frames) // cfg.gop_len), "encode_summary": 1,
+                "stage_timings": 1, "frame": len(frames), "summary": 1}
+        if {e: events.count(e) for e in set(events)} != want \
+                or not np.isfinite(mean_psnr) or len(recon) != len(frames):
+            fail(f"the roundtrip core logged {events}, mean PSNR "
+                 f"{mean_psnr}")
+        if "stage timings" not in printed.getvalue():
+            fail("the roundtrip core printed no stage timings")
+        print(f"[{label}] roundtrip core (profile, metrics): mean PSNR "
+              f"{mean_psnr:.4f} dB, records {want}")
+
+        cfg420 = CodecConfig.production(chroma_420=True)
+        c0 = read_counts()
+        with contextlib.redirect_stdout(printed):
+            cli.encode_reader(ClipReader(frames), cfg420, core_path,
+                              device="cuda")
+        c1 = read_counts()
+        _, _, blob420 = direct_encode_vcs(frames, cfg420, direct_path)
+        with open(core_path, "rb") as fh:
+            if fh.read() != blob420:
+                fail("the --chroma-420 encode core's .vcs differs from "
+                     "Encoder -> save_vcs")
+        used = {k: c1[k] - c0[k] for k in c1}
+        if any(used[k] == 0 for k in ("plane_encode", "c420_encode")) \
+                or used["fused_p_encode"]:
+            fail(f"the --chroma-420 encode core launched {used}")
+        print(f"[{label}] --chroma-420 encode core: .vcs {len(blob420)} "
+              f"bytes identical to Encoder -> save_vcs; launched {used}")
+    launches = read_counts()
+    print(f"[{label}] kernel launches {launches}; phase "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    return launches, blob, times["direct"][0][0] + t_save
+
+
+DIST_WORLD = 2
+DIST_TIMEOUT_S = 180
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def dist_rank_main(args) -> int:
+    """One rank of `distributed_phase`: the clip from --seed, this rank's
+    span of the main path encoded by `parallel.encode_distributed` into
+    --dist-dir/ckpt, and on rank 0 the assembled stream written to
+    --dist-dir/dist.vcs. Prints one line: the span; the seconds to import
+    torch and reach the card, to meet at the store, to make the clip, to be
+    ready; and the seconds and launches of each `Encoder.encode_frames`
+    call (the span's, and on rank 0 the assembling pass's)."""
+    t0 = time.perf_counter()
+    import torch
+    from vcs_h264_tpu_torch import CodecConfig
+    from vcs_h264_tpu_torch.io import bitstream
+    from vcs_h264_tpu_torch.models import encoder as encoder_mod
+    from vcs_h264_tpu_torch.parallel import distributed
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    torch.set_num_threads(2)
+    t_import = time.perf_counter() - t0
+    rank, world = distributed.init_distributed(
+        args.dist_coordinator, args.dist_world, args.dist_rank)
+    t_store = time.perf_counter() - t0 - t_import
+    frames = synthetic_clip(args.seed, CLIP_FRAMES)
+    t_clip = time.perf_counter() - t0 - t_import - t_store
+    calls = []
+    inner = encoder_mod.Encoder.encode_frames
+
+    def counted(self, *a, **k):
+        c0, t = read_counts(), time.perf_counter()
+        out = inner(self, *a, **k)
+        torch.cuda.synchronize()
+        c1 = read_counts()
+        calls.append({"s": round(time.perf_counter() - t, 4),
+                      "launches": {n: c1[n] - c0[n] for n in c1
+                                   if c1[n] - c0[n]}})
+        return out
+
+    encoder_mod.Encoder.encode_frames = counted
+    t_ready = time.perf_counter() - t0
+    cfg = CodecConfig.production(intra_qstep=QSTEP)
+    video = distributed.encode_distributed(
+        frames, 25.0, cfg, checkpoint_dir=os.path.join(args.dist_dir, "ckpt"),
+        rank=rank, world=world, device="cuda")
+    if video is not None:
+        bitstream.save_vcs(video, os.path.join(args.dist_dir, "dist.vcs"))
+    span = distributed.assign_gops(-(-CLIP_FRAMES // cfg.gop_len), world,
+                                   rank)
+    print(f"[dist rank {rank}/{world}] " + json.dumps(dict(
+        gops=[span[0], span[-1]], device=torch.cuda.current_device(),
+        import_s=round(t_import, 4), store_s=round(t_store, 4),
+        clip_s=round(t_clip, 4), ready_s=round(t_ready, 4),
+        total_s=round(time.perf_counter() - t0, 4), calls=calls)),
+        flush=True)
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def run_ranks(seed: int, dist_dir: str):
+    """Two ranks of this script on the one card -> (their return codes,
+    outputs, wall seconds)."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    port = free_port()
+    env = {**os.environ, "PYTHONPATH": here, "OMP_NUM_THREADS": "2"}
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.join(here, "chip_smoke.py"), "--seed",
+         str(seed), "--dist-rank", str(r), "--dist-world", str(DIST_WORLD),
+         "--dist-coordinator", f"localhost:{port}", "--dist-dir", dist_dir],
+        cwd=here, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True) for r in range(DIST_WORLD)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=DIST_TIMEOUT_S)[0])
+    except subprocess.TimeoutExpired:
+        for p in procs:
+            p.kill()
+            p.communicate()
+        fail(f"a rank did not finish within {DIST_TIMEOUT_S} s")
+    return [p.returncode for p in procs], outs, time.perf_counter() - t0
+
+
+def distributed_phase(card: str, seed: int, single_vcs: bytes,
+                      single_s: float) -> dict:
+    """Phase 9, the GOP axis across processes: two ranks of this script
+    (`--dist-rank`) on the one card meet at a store on localhost, each
+    encodes its span of the main path into a shared checkpoint directory,
+    and rank 0 assembles and writes the .vcs. Fails unless both exit 0
+    within the time limit, the bytes equal the one-process .vcs, and rank
+    0's assembling pass launched no K2, K3 or K5. Prints each rank's line
+    and the wall time beside the one-process encode and save. Returns both
+    ranks' launches."""
+    label = "distributed"
+    with tempfile.TemporaryDirectory() as tmp:
+        rcs, outs, wall = run_ranks(seed, tmp)
+        if any(rcs) and "address already in use" in "".join(outs).lower():
+            shutil.rmtree(tmp)
+            os.makedirs(tmp)
+            rcs, outs, wall = run_ranks(seed, tmp)    # the port was taken
+        for r, out in enumerate(outs):
+            for line in out.strip().splitlines()[-12:]:
+                print(f"[{label} rank {r}] {line}")
+        if rcs != [0] * DIST_WORLD:
+            fail(f"the ranks exited with {rcs}")
+        with open(os.path.join(tmp, "dist.vcs"), "rb") as fh:
+            blob = fh.read()
+        n_files = len(os.listdir(os.path.join(tmp, "ckpt")))
+    records = []
+    for r, out in enumerate(outs):
+        tag = f"[dist rank {r}/{DIST_WORLD}] "
+        line = [x for x in out.splitlines() if x.startswith(tag)]
+        if not line:
+            fail(f"rank {r} printed no record")
+        records.append(json.loads(line[-1][len(tag):]))
+    if blob != single_vcs:
+        fail("the two-rank .vcs differs from the one-process .vcs")
+    assemble = records[0]["calls"][-1]["launches"]
+    if len(records[0]["calls"]) != 2 or any(
+            assemble.get(k) for k in ("sad_search", "fused_p_encode",
+                                      "intra_encode")):
+        fail(f"rank 0's assembling pass launched {assemble}")
+    launches = {}
+    for rec in records:
+        for call in rec["calls"]:
+            for k, v in call["launches"].items():
+                launches[k] = launches.get(k, 0) + v
+    print(f"[{label}] {DIST_WORLD} ranks on one card: .vcs {len(blob)} "
+          f"bytes identical to the one-process .vcs, {n_files} checkpoint "
+          f"files, rank 0's assembling pass launched {assemble}; wall "
+          f"{wall:.2f} s for both ranks (each rank ready, with its start-up, "
+          f"the clip and the store, after "
+          f"{[r['ready_s'] for r in records]} s; done after "
+          f"{[r['total_s'] for r in records]} s) against {single_s:.4f} s "
+          f"for the one-process encode and save ({card})")
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2396,7 +2830,14 @@ def main() -> int:
                     help="profile each path once instead of checking")
     ap.add_argument("--earlier", metavar="DIR",
                     help="time the K1 to K7 of the sources in DIR as well")
+    ap.add_argument("--dist-rank", type=int, default=None,
+                    help="run as this rank of the distributed phase")
+    ap.add_argument("--dist-world", type=int, default=DIST_WORLD)
+    ap.add_argument("--dist-coordinator", default=None)
+    ap.add_argument("--dist-dir", default=None)
     args = ap.parse_args()
+    if args.dist_rank is not None:
+        return dist_rank_main(args)
 
     import torch
     if not torch.cuda.is_available():
@@ -2459,6 +2900,14 @@ def main() -> int:
         for k, v in main_path_phase(frames, card, cfg, label, **kw).items():
             launches[k] = launches.get(k, 0) + v
     for k, v in stream_phase(frames, card).items():
+        launches[k] += v
+    for k, v in study_phase(frames, card).items():
+        launches[k] += v
+    cli_launches, single_vcs, single_s = cli_phase(frames, card, args.seed)
+    for k, v in cli_launches.items():
+        launches[k] += v
+    for k, v in distributed_phase(card, args.seed, single_vcs,
+                                  single_s).items():
         launches[k] += v
 
     meta = {

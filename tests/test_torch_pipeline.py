@@ -336,6 +336,22 @@ with profiling.device_trace(os.path.join(tmp, "trace")):
         metrics.psnr_t(torch.ones(4), torch.zeros(4))
 assert os.listdir(os.path.join(tmp, "trace"))
 assert video_io.group_into_gops(frames, 4)[1][1].shape == (3, 16, 32, 3)
+import contextlib
+import io
+from vcs_h264_tpu_torch import cli, parallel
+with contextlib.redirect_stdout(io.StringIO()) as out:
+    try:
+        cli.main(["--help"])
+    except SystemExit as e:
+        assert e.code == 0
+    image = rng.integers(0, 256, (32, 48, 3), dtype=np.uint8)
+    pred, yres, modes = cli.intra_study(image, "4x4", "cpu")
+    assert pred.shape == image.shape and modes.shape == (8, 12)
+    assert cli.dct_study(image, 90.0, 8, "cpu").shape == image.shape
+    assert cli.chroma_study(image, "cpu").shape == image.shape
+printed = out.getvalue()
+assert "encode" in printed and "sparsity (Y)" in printed, printed
+assert parallel.init_distributed() == (0, 1)
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "vcs_h264_tpu", "cv2"))
 launches = {**motion_cuda.LAUNCHES, **inter_cuda.LAUNCHES, **intra_cuda.LAUNCHES}

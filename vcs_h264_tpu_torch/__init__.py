@@ -14,13 +14,19 @@ version-3 container (`signed_residual=False`): `Encoder.encode_frames` ->
 codec of `models.intra_codec`; and the streaming path from video file to
 video file: `Encoder.encode_video` / `encode_stream` with per-GOP
 checkpoints, metrics and stage timings, `Decoder.iter_frames` /
-`decode_to_file`.
+`decode_to_file`; the GOP axis across processes (`parallel`: each rank
+encodes its GOP span into a shared checkpoint directory, rank 0 assembles
+the stream); the command-line driver (`cli`: encode, decode, roundtrip and
+the intra, DCT and chroma studies, with `--device`); and the study
+functions and single-frame wrappers of `ops` (the open-loop intra studies,
+the single-plane intra codec, the one-frame motion search and
+compensation, the blockwise DCT of a plane, the chroma study's round trip).
 
 Layout:
   config.py   CodecConfig (field for field the JAX package's)
   ops/        blocks, color, subsample, dct, quant (tables, zigzag), motion
-              and intra (plain PyTorch), motion_cuda, inter_cuda and
-              intra_cuda (kernel
+              and intra (plain PyTorch, the studies and the single-frame
+              wrappers), motion_cuda, inter_cuda and intra_cuda (kernel
               wrappers, with the plain versions of K3/K4/K7 in inter_cuda),
               _build (nvcc)
   csrc/       the CUDA kernels
@@ -32,6 +38,10 @@ Layout:
               writer, imported inside)
   utils/      metrics (PSNR, SSIM, sparsity, JSONL logger), profiling
               (trace ranges, device_trace, StageTimer)
+  parallel/   distributed (the process group on a store, the barrier, GOP
+              spans, the merge of checkpoint directories, the encode)
+  cli.py      the command-line driver: cores on frames and streams, and a
+              file layer with cv2 imported inside
   interop.py  encoded streams to and from the JAX package
 """
 

@@ -1,6 +1,6 @@
 """BGR <-> YCrCb, bit-exact with OpenCV's 8-bit path (counterpart of
-`vcs_h264_tpu/ops/color.py`; the chroma study's float conversion waits for
-ROADMAP M11).
+`vcs_h264_tpu/ops/color.py`), and the chroma study's float conversion
+back to RGB.
 
 OpenCV's uint8 conversion is fixed-point: 14-bit coefficient tables with
 round-half-up descaling. The port computes it in int32 with an arithmetic
@@ -71,3 +71,24 @@ def bgr_to_ycrcb_planes(x: torch.Tensor) -> torch.Tensor:
 def ycrcb_to_bgr_planes(x: torch.Tensor) -> torch.Tensor:
     """Planar YCrCb [..., 3, H, W] -> planar BGR [..., 3, H, W] int32."""
     return _convert(x, _to_bgr, -3)
+
+
+# The chroma study's own float32 constants (YCrCb -> RGB).
+_STUDY_CR2R, _STUDY_CB2G, _STUDY_CR2G, _STUDY_CB2B = (
+    1.4022, 0.34414, 0.71414, 1.772)
+
+
+def ycrcb_to_rgb_float(y: torch.Tensor, cr: torch.Tensor, cb: torch.Tensor):
+    """Float YCrCb -> RGB with the chroma study's constants, in float32:
+    r = y + 1.4022 cr', g = y - 0.34414 cb' - 0.71414 cr', b = y + 1.772 cb'
+    (cr', cb' = cr - 128, cb - 128), each clamped to [0, 255]. Returns float32
+    tensors (r, g, b)."""
+    yf = y.to(torch.float32)
+    crf = cr.to(torch.float32) - 128.0
+    cbf = cb.to(torch.float32) - 128.0
+    # a Python float multiplies a float32 tensor as a float32 operand, as
+    # the JAX package rounds its constants
+    r = yf + _STUDY_CR2R * crf
+    g = yf - _STUDY_CB2G * cbf - _STUDY_CR2G * crf
+    b = yf + _STUDY_CB2B * cbf
+    return r.clamp(0.0, 255.0), g.clamp(0.0, 255.0), b.clamp(0.0, 255.0)

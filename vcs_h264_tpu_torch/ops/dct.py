@@ -18,6 +18,8 @@ import functools
 import numpy as np
 import torch
 
+from vcs_h264_tpu_torch.ops.blocks import blocks_to_plane, plane_to_blocks
+
 
 @functools.lru_cache(maxsize=None)
 def dct_matrix_np(n: int) -> np.ndarray:
@@ -63,3 +65,16 @@ def idct2_blocks(blocks: torch.Tensor) -> torch.Tensor:
     """Inverse DCT D^T @ B @ D on [..., bs, bs] float32 blocks."""
     d = dct_matrix(blocks.shape[-1], blocks.device)
     return _right(_left(d.T, blocks), d)
+
+
+def dct2_plane(plane: torch.Tensor, bs: int) -> torch.Tensor:
+    """Forward blockwise DCT over a [..., H, W] plane (H, W multiples of
+    bs), in float32."""
+    return blocks_to_plane(dct2_blocks(plane_to_blocks(
+        plane.to(torch.float32), bs)))
+
+
+def idct2_plane(plane: torch.Tensor, bs: int) -> torch.Tensor:
+    """Inverse blockwise DCT over a [..., H, W] plane, in float32."""
+    return blocks_to_plane(idct2_blocks(plane_to_blocks(
+        plane.to(torch.float32), bs)))

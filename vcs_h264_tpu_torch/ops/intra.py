@@ -27,7 +27,15 @@ independent.
 `intra_encode4x4_lossy_batch` and the decoders send CUDA tensors to the
 hand-written kernels (`ops/intra_cuda.py`, K5 and K6) and CPU tensors to the
 plain PyTorch wavefront below, which loops over the diagonals in Python;
-`backend="plain"` asks for the plain version on any device.
+`backend="plain"` asks for the plain version on any device. The
+single-plane wrappers (`intra_encode4x4_lossy`, `intra_decode4x4`,
+`intra_decode4x4_lossy`) take the same routes.
+
+The open-loop studies `luma4x4`, `luma16x16` (V/H/DC over 16x16 blocks,
+from a zero prediction at 16 * 16 * 255) and `chroma8x8` (V/H/DC over 8x8
+blocks, one mode shared by Cr and Cb by their summed SAD, from 2 * 8 * 8 *
+255) predict every block from the original plane at once; they are plain
+PyTorch on any device, as they are XLA in the JAX package.
 """
 
 from __future__ import annotations
@@ -37,6 +45,7 @@ import functools
 import numpy as np
 import torch
 
+from vcs_h264_tpu_torch.ops.blocks import blocks_to_plane, plane_to_blocks
 from vcs_h264_tpu_torch.ops.motion import check_backend
 
 BS = 4
@@ -219,30 +228,41 @@ def _preds9(u, l, ul, ur, a_u, a_l, a_ur):
     ])
 
 
-def _select_best(block, preds, init_diff: int = SENTINEL):
-    """preds [9, ..., 4, 4], block [..., 4, 4] -> (pred [..., 4, 4], mode
-    [...] int32, escape [...] bool).
-
-    The reference's strict-< scan from a zero prediction at `init_diff`, as
-    one min over packed keys SAD * 16 + mode + 1 against the sentinel
-    init_diff * 16: the smallest SAD wins, the lowest mode among equals,
-    and a SAD equal to init_diff loses to the sentinel (escape)."""
-    diffs = (preds - block[None]).abs().sum(dim=(-2, -1), dtype=torch.int32)
-    idx = torch.arange(1, 10, dtype=torch.int32, device=block.device)
-    keys = diffs * 16 + idx.reshape(9, *([1] * (diffs.ndim - 1)))
+def _first_min(diffs, init_diff: int):
+    """diffs [M, ...] int32 (M <= 15 modes) -> (mode [...] int32, escape
+    [...] bool): the reference's strict-< scan from a zero prediction at
+    `init_diff`, as one min over packed keys SAD * 16 + mode + 1 against
+    the sentinel init_diff * 16: the smallest SAD wins, the lowest mode
+    among equals, and a SAD equal to init_diff loses to the sentinel
+    (escape)."""
+    m = diffs.shape[0]
+    idx = torch.arange(1, m + 1, dtype=torch.int32, device=diffs.device)
+    keys = diffs * 16 + idx.reshape(m, *([1] * (diffs.ndim - 1)))
     kmin = keys.amin(dim=0)
     escape = kmin > init_diff * 16
-    mode = torch.where(escape, 0, (kmin & 15) - 1)
+    return torch.where(escape, 0, (kmin & 15) - 1), escape
+
+
+def _sads(preds, block):
+    """preds [M, ..., n, n], block [..., n, n] -> SADs [M, ...] int32."""
+    return (preds - block[None]).abs().sum(dim=(-2, -1), dtype=torch.int32)
+
+
+def _select_best(block, preds, init_diff: int = SENTINEL):
+    """preds [M, ..., n, n], block [..., n, n] -> (pred [..., n, n], mode
+    [...] int32, escape [...] bool), by `_first_min`."""
+    mode, escape = _first_min(_sads(preds, block), init_diff)
     return _pick(preds, mode, escape), mode, escape
 
 
 def _pick(preds, mode, zero):
-    """preds [9, ..., 4, 4] -> the prediction of `mode` [...], or zeros where
-    `zero` (or where mode is not one of the 9)."""
-    safe = mode.clamp(0, 8).to(torch.int64)
+    """preds [M, ..., n, n] -> the prediction of `mode` [...], or zeros where
+    `zero` (or where mode is not one of the M)."""
+    m, n = preds.shape[0], preds.shape[-1]
+    safe = mode.clamp(0, m - 1).to(torch.int64)
     pred = torch.gather(preds, 0, safe[None, ..., None, None].expand(
-        1, *mode.shape, 4, 4))[0]
-    keep = ~zero & (mode >= 0) & (mode <= 8)
+        1, *mode.shape, n, n))[0]
+    keep = ~zero & (mode >= 0) & (mode <= m - 1)
     return torch.where(keep[..., None, None], pred, 0)
 
 
@@ -267,12 +287,86 @@ def luma4x4_codec(y: torch.Tensor):
     nbw], escape bool). `escape` marks blocks where no mode beat 16 * 255
     and the zero prediction was kept: the stored mode 0 is ambiguous there,
     so the decoder needs the flag."""
+    block, pred, modes, escape = _luma4x4_search(y)
+    return _planes_of_blocks(block - pred), modes, escape
+
+
+def _luma4x4_search(y: torch.Tensor):
+    """The 4x4 mode search on the original plane: y [..., H, W] -> (blocks,
+    their predictions [..., nbh, nbw, 4, 4], modes, escape)."""
     y = y.to(torch.int32)
     u, l, ul, ur, (a_u, a_l, _, a_ur) = _neighbors(y)
     preds = _preds9(u, l, ul, ur, a_u, a_l, a_ur)
     block = _blocks_of_planes(y)
-    pred, modes, escape = _select_best(block, preds)
-    return _planes_of_blocks(block - pred), modes, escape
+    return (block, *_select_best(block, preds))
+
+
+# --- The open-loop studies (the reference's intra study) --------------------
+
+
+def luma4x4(y: torch.Tensor):
+    """Mode search over the 9 4x4 luma modes with neighbours from the
+    original plane: y [..., H, W] (uint8 values), H, W multiples of 4 ->
+    (residual [..., H, W], prediction [..., H, W], modes [..., nbh, nbw]),
+    all int32."""
+    block, pred, modes, _ = _luma4x4_search(y)
+    return (_planes_of_blocks(block - pred), _planes_of_blocks(pred),
+            modes)
+
+
+def _vhdc_preds(plane: torch.Tensor, bs: int):
+    """The vertical, horizontal and DC predictors of bs x bs blocks from the
+    original plane [H, W] int32 (an unavailable neighbour reads 128, the DC
+    is (sum u + sum l) // (2 bs) without a wrap) -> (preds [3, nbh, nbw,
+    bs, bs], blocks [nbh, nbw, bs, bs])."""
+    h, w = plane.shape[-2:]
+    nbh, nbw = h // bs, w // bs
+    dev = plane.device
+    a_u, a_l, _, _ = _avail_masks(nbh, nbw, dev)
+    rows_above = (torch.arange(nbh, device=dev) * bs - 1).clamp(min=0)
+    cols_left = (torch.arange(nbw, device=dev) * bs - 1).clamp(min=0)
+    u_raw = plane[rows_above].reshape(nbh, nbw, bs)
+    l_raw = plane[:, cols_left].reshape(nbh, bs, nbw).transpose(1, 2)
+    fill = torch.tensor(128, dtype=torch.int32, device=dev)
+    u = torch.where(a_u[..., None], u_raw, fill)
+    l = torch.where(a_l[..., None], l_raw, fill)
+    dc = (u.sum(dim=-1, dtype=torch.int32)
+          + l.sum(dim=-1, dtype=torch.int32)) // (2 * bs)
+    preds = torch.stack([
+        u[..., None, :].expand(nbh, nbw, bs, bs),
+        l[..., :, None].expand(nbh, nbw, bs, bs),
+        dc[..., None, None].expand(nbh, nbw, bs, bs),
+    ])
+    return preds, plane_to_blocks(plane, bs)
+
+
+def luma16x16(y: torch.Tensor):
+    """Vertical, horizontal and DC over 16x16 blocks of y [H, W] (uint8
+    values), H, W multiples of 16, from a zero prediction at 16 * 16 * 255
+    -> (residual [H, W], prediction [H, W], modes [nbh, nbw]), all int32."""
+    preds, block = _vhdc_preds(y.to(torch.int32), 16)
+    pred, modes, _ = _select_best(block, preds, 16 * 16 * 255)
+    return (blocks_to_plane(block - pred),
+            blocks_to_plane(pred), modes)
+
+
+def chroma8x8(cr: torch.Tensor, cb: torch.Tensor):
+    """Joint Cr / Cb vertical, horizontal and DC over 8x8 blocks (H, W
+    multiples of 8): one mode per block, shared by both planes, chosen by
+    the summed SAD from a zero prediction at 2 * 8 * 8 * 255 -> (Cr
+    residual, Cr prediction, Cb residual, Cb prediction [H, W], modes
+    [nbh, nbw]), all int32. Both planes are read as themselves (the JAX
+    package's fix of the reference's `Cbres` typo)."""
+    preds_r, block_r = _vhdc_preds(cr.to(torch.int32), 8)
+    preds_b, block_b = _vhdc_preds(cb.to(torch.int32), 8)
+    modes, escape = _first_min(_sads(preds_r, block_r)
+                               + _sads(preds_b, block_b), 2 * 8 * 8 * 255)
+    pred_r = _pick(preds_r, modes, escape)
+    pred_b = _pick(preds_b, modes, escape)
+    return (blocks_to_plane(block_r - pred_r),
+            blocks_to_plane(pred_r),
+            blocks_to_plane(block_b - pred_b),
+            blocks_to_plane(pred_b), modes)
 
 
 # --- H.264 4x4 integer core transform (integer-exact, any device) ----------
@@ -461,3 +555,43 @@ def intra_decode4x4_batch(residual: torch.Tensor, modes: torch.Tensor,
     decoding in dependency order gives back the source bit for bit."""
     return _decode_planes_dispatch(residual, modes, escape, clip=False,
                                    qstep=0, backend=backend)
+
+
+# --- Single-plane wrappers ----------------------------------------------------
+# One plane [H, W] as a batch of one. The operands are cast to the kernels'
+# types (residuals and coefficients int16, modes int8, escape bool, planes
+# uint8), which hold every value an encoder of this package writes.
+
+
+def intra_decode4x4(residual: torch.Tensor, modes: torch.Tensor,
+                    escape: torch.Tensor, backend: str = "auto"
+                    ) -> torch.Tensor:
+    """Lossless wavefront decode of one plane (see intra_decode4x4_batch):
+    residual [H, W], modes / escape [nbh, nbw] -> int32 [H, W]; K6 on a
+    CUDA tensor."""
+    return intra_decode4x4_batch(
+        residual[None].to(torch.int16).contiguous(),
+        modes[None].to(torch.int8).contiguous(),
+        escape[None].to(torch.bool).contiguous(), backend)[0]
+
+
+def intra_encode4x4_lossy(y: torch.Tensor, qstep: int,
+                          backend: str = "auto"):
+    """Closed-loop lossy intra encode of one plane [H, W] (uint8 values; see
+    intra_encode4x4_lossy_batch) -> (qcoef int16 [H, W], modes int8 [nbh,
+    nbw], escape bool [nbh, nbw], recon uint8 [H, W]); K5 on a CUDA
+    tensor."""
+    q, modes, escape, recon = intra_encode4x4_lossy_batch(
+        y[None].to(torch.uint8).contiguous(), qstep, backend)
+    return q[0], modes[0], escape[0], recon[0]
+
+
+def intra_decode4x4_lossy(qcoef: torch.Tensor, modes: torch.Tensor,
+                          escape: torch.Tensor, qstep: int,
+                          backend: str = "auto") -> torch.Tensor:
+    """Wavefront decode of one lossy plane (see
+    intra_decode4x4_lossy_batch) -> uint8 [H, W]; K6 on a CUDA tensor."""
+    return intra_decode4x4_lossy_batch(
+        qcoef[None].to(torch.int16).contiguous(),
+        modes[None].to(torch.int8).contiguous(),
+        escape[None].to(torch.bool).contiguous(), qstep, backend)[0]

@@ -14,8 +14,9 @@ reference:
     <= static_threshold gets the zero vector;
   * vectors are (dx, dy), dx along the column (W) axis.
 
-`motion_search_gops` and `motion_compensate_gops` send a CUDA tensor to
-the hand-written kernels (`ops/motion_cuda.py`: K2 search, K1
+`motion_search_gops` and `motion_compensate_gops` (and their one-frame
+wrappers `motion_search`, `motion_search_batch`, `motion_compensate`) send a
+CUDA tensor to the hand-written kernels (`ops/motion_cuda.py`: K2 search, K1
 compensation) and a CPU tensor to the plain PyTorch versions below; a plain
 version runs on a CUDA tensor only when asked for by name
 (`backend="plain"`), which is how the kernels are held against it on the
@@ -274,6 +275,42 @@ def motion_compensate_gops(mv: torch.Tensor, refs: torch.Tensor, *, bs: int,
         return motion_compensate_plain(mv, refs, bs=bs)
     from vcs_h264_tpu_torch.ops import motion_cuda
     return motion_cuda.compensate(mv.contiguous(), refs.contiguous(), bs=bs)
+
+
+def motion_search(cur: torch.Tensor, ref: torch.Tensor, *, bs: int = 8,
+                  reach: int = 16, step: int = 3,
+                  static_threshold: int = 2000,
+                  backend: str = "auto") -> torch.Tensor:
+    """Vectors of one frame: cur, ref [C, H, W] (uint8 values) -> [nbh,
+    nbw, 2] int32 (dx, dy); K2 on a CUDA tensor (see motion_search_gops)."""
+    return motion_search_batch(cur[None], ref, bs=bs, reach=reach, step=step,
+                               static_threshold=static_threshold,
+                               backend=backend)[0]
+
+
+def motion_search_batch(curs: torch.Tensor, ref: torch.Tensor, *,
+                        bs: int = 8, reach: int = 16, step: int = 3,
+                        static_threshold: int = 2000,
+                        backend: str = "auto") -> torch.Tensor:
+    """Vectors of F frames against one reference: curs [F, C, H, W], ref
+    [C, H, W] (uint8 values) -> [F, nbh, nbw, 2] int32; K2 on a CUDA
+    tensor. The frames go to the search as uint8, the kernel's type."""
+    return motion_search_gops(
+        curs[None].to(torch.uint8).contiguous(),
+        ref[None].to(torch.uint8).contiguous(), bs=bs, reach=reach,
+        step=step, static_threshold=static_threshold, backend=backend)[0]
+
+
+def motion_compensate(mv: torch.Tensor, ref: torch.Tensor, bs: int,
+                      backend: str = "auto") -> torch.Tensor:
+    """One frame rebuilt from its vectors: mv [nbh, nbw, 2] (dx, dy), ref
+    [C, H, W] (uint8 values) -> [C, H, W] in ref's dtype; K1 on a CUDA
+    tensor, which takes and gives uint8, so the wrapper casts the
+    reference to uint8 and the result back."""
+    out = motion_compensate_gops(
+        mv[None, None].to(torch.int32).contiguous(),
+        ref[None].to(torch.uint8).contiguous(), bs=bs, backend=backend)
+    return out[0, 0].to(ref.dtype)
 
 
 def residuals_wrap(cur: torch.Tensor, recon: torch.Tensor) -> torch.Tensor:

@@ -1,6 +1,5 @@
 """4:2:0 chroma subsampling (counterpart of
-`vcs_h264_tpu/ops/subsample.py:21-44, 70-86`; the chroma study's float
-round trip `chroma_420_roundtrip` waits for ROADMAP M11).
+`vcs_h264_tpu/ops/subsample.py`), and the chroma study's round trip.
 
 cv2.boxFilter's uint8 2x2 path, as the JAX package pins it:
 out(i, j) = ceil((x[i-1, j-1] + x[i-1, j] + x[i, j-1] + x[i, j]) / 4) with
@@ -13,6 +12,8 @@ any Pallas kernel.
 from __future__ import annotations
 
 import torch
+
+from vcs_h264_tpu_torch.ops import color
 
 
 def box_filter_2x2(plane: torch.Tensor) -> torch.Tensor:
@@ -54,3 +55,20 @@ def decode_420(y: torch.Tensor, cr: torch.Tensor,
     return torch.stack([y, upsample_nearest(cr)[..., :h, :w].to(y.dtype),
                         upsample_nearest(cb)[..., :h, :w].to(y.dtype)],
                        dim=-3)
+
+
+def chroma_420_roundtrip(bgr_planes: torch.Tensor) -> torch.Tensor:
+    """The chroma study end to end: BGR planes [..., 3, H, W] (uint8 values)
+    -> YCrCb, 4:2:0 subsampled chroma, nearest upsampling back to H x W, the
+    study's float conversion to RGB (`color.ycrcb_to_rgb_float`) -> BGR
+    planes [..., 3, H, W] int32. The float -> int step truncates toward
+    zero, as the reference's assignment into a uint8 image does (the
+    values are already clamped to [0, 255])."""
+    ycc = color.bgr_to_ycrcb_planes(bgr_planes)
+    y = ycc[..., 0, :, :]
+    h, w = y.shape[-2:]
+    cr = upsample_nearest(subsample_420(ycc[..., 1, :, :]))[..., :h, :w]
+    cb = upsample_nearest(subsample_420(ycc[..., 2, :, :]))[..., :h, :w]
+    r, g, b = color.ycrcb_to_rgb_float(y, cr, cb)
+    return torch.stack([b.to(torch.int32), g.to(torch.int32),
+                        r.to(torch.int32)], dim=-3)
