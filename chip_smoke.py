@@ -174,8 +174,18 @@ package. Phases, each of which exits nonzero on failure:
      directory, and rank 0 assembles the .vcs: both exit 0 within 180 s,
      the bytes equal the one-process .vcs, rank 0's assembling pass
      launches no K2, K3 or K5; the wall time beside the one-process encode.
-     The ranks' launches are added to the kernels' record, as are phases 7
-     and 8's.
+     The ranks' launches are added to the kernels' record, as are phases 7,
+     8 and 10's.
+ 10. the row-tiled (gop x tile) mesh (`spatial_phase`, parallel/spatial.py)
+     on the clip's full GOPs, every mesh position on its own card where
+     there are several, else all on cuda:0: the main path on meshes 2 x 2
+     (tiles of 360 rows) and 1 x 3 (240), production B on 2 x 2, 4:2:0 on
+     1 x 3. In each counted window (the sharded encode, save_vcs, load_vcs,
+     the sharded decode of the loaded stream) K2, K3/K4 (or the bare-plane
+     pair and K7), K5 and K6 launch on tile strips, and K1 in B; the
+     sharded stream equals the unsharded port's field for field, its .vcs
+     the Encoder's bytes, its decode the unsharded decode; sharded and
+     unsharded encode and decode ms by CUDA events.
 
 K2 has two kernels, chosen by shape in its C entry point: the word kernel
 (block sizes 4, 8, 16 on 4-byte boundaries; all main shapes) and the byte
@@ -2823,6 +2833,179 @@ def distributed_phase(card: str, seed: int, single_vcs: bytes,
     return launches
 
 
+# (label, CodecConfig.production's arguments, (gop, tile) meshes, kernels
+# the sharded window must launch)
+SPATIAL_CASES = (
+    ("production", dict(intra_qstep=QSTEP), ((2, 2), (1, 3)),
+     ("sad_search", "fused_p_encode", "fused_p_decode", "intra_encode",
+      "intra_decode")),
+    ("production B", dict(intra_qstep=QSTEP, gop_pattern=IBPBPBP),
+     ((2, 2),), ("sad_search", "fused_p_encode", "fused_p_decode",
+                 "compensate", "intra_encode", "intra_decode")),
+    ("4:2:0", dict(chroma_420=True, intra_qstep=QSTEP), ((1, 3),),
+     ("sad_search", "plane_encode", "plane_decode", "c420_encode",
+      "c420_decode", "intra_encode", "intra_decode")),
+)
+SPATIAL_REPS = 3
+
+
+def spatial_positions(n: int) -> list:
+    """n mesh positions: a card each while there are cards, then again
+    from cuda:0."""
+    import torch
+    count = torch.cuda.device_count()
+    return [torch.device("cuda", i % count) for i in range(n)]
+
+
+def event_ms(fn):
+    """(fn's result, ms between CUDA events around the call)."""
+    import torch
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def unsharded_encode(i_b, p_b, cfg):
+    """The Encoder's batch without the Encoder's upload: lossy intra (K5),
+    then `pipeline.encode_gop_batch` on its reconstruction, or the 4:2:0
+    `encode_gop_batch_420`."""
+    import dataclasses
+    from vcs_h264_tpu_torch.models import intra_codec, pipeline, pipeline420
+    if cfg.chroma_420:
+        return pipeline420.encode_gop_batch_420(i_b, p_b, cfg)
+    pay, rec = intra_codec.encode_intra_frames_lossy_batch(i_b,
+                                                           cfg.intra_qstep)
+    return dataclasses.replace(pipeline.encode_gop_batch(rec, p_b, cfg),
+                               i_qcoef=pay.qcoef, i_modes=pay.modes,
+                               i_escape=pay.escape)
+
+
+def spatial_phase(frames, card: str) -> dict:
+    """Phase 10, the row-tiled (gop x tile) mesh of `parallel/spatial.py`
+    on the clip's full GOPs at 1280x720 (mesh positions on distinct cards
+    where there are several, else all on cuda:0): the main path on meshes
+    2 x 2 (tiles of 360 rows) and 1 x 3 (240), production B on 2 x 2 (K1
+    and the exchange of decoded anchors), 4:2:0 on 1 x 3. Each sharded
+    window (encode, save_vcs, load_vcs with K6, the sharded decode of the
+    loaded stream) is counted and must launch the case's kernels. The
+    sharded stream must equal the unsharded one field for field, its .vcs
+    the Encoder's bytes, and the sharded decode the unsharded decode.
+    Prints each case's sharded and unsharded encode and decode ms (CUDA
+    events, medians of SPATIAL_REPS, in turns). Returns the launches of
+    the counted windows."""
+    import dataclasses
+    import torch
+    from vcs_h264_tpu_torch import CodecConfig
+    from vcs_h264_tpu_torch.io import bitstream
+    from vcs_h264_tpu_torch.models import EncodedVideo, Encoder
+    from vcs_h264_tpu_torch.models import pipeline, pipeline420
+    from vcs_h264_tpu_torch.parallel import mesh as pmesh, spatial
+
+    label = "spatial"
+    t_phase = time.perf_counter()
+    positions = spatial_positions(4)
+    dev = positions[0]
+    print(f"[{label}] mesh positions {[str(p) for p in positions]} "
+          f"({torch.cuda.device_count()} card(s))")
+    launches = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for case, kw, meshes, want in SPATIAL_CASES:
+            cfg = CodecConfig.production(**kw)
+            n_gops = len(frames) // cfg.gop_len
+            n = n_gops * cfg.gop_len
+            clip = torch.from_numpy(np.stack(frames[:n])).to(dev)
+            clip = clip.permute(0, 3, 1, 2).reshape(n_gops, cfg.gop_len, 3,
+                                                    H, W)
+            i_b, p_b = clip[:, 0].contiguous(), clip[:, 1:].contiguous()
+            if cfg.chroma_420:
+                enc_s, dec_s = (spatial.sharded_encode_gop_batch_420,
+                                spatial.sharded_decode_gop_batch_420)
+
+                def dec_u(s):
+                    return pipeline420.decode_gop_batch_420(s, cfg)
+            else:
+                enc_s, dec_s = (spatial.sharded_encode_gop_batch,
+                                spatial.sharded_decode_gop_batch)
+
+                def dec_u(s):
+                    return pipeline.decode_gop_batch(s, cfg)
+            want_stream = unsharded_encode(i_b, p_b, cfg)
+            want_dec = dec_u(want_stream)
+            ref_path = os.path.join(tmp, "ref.vcs")
+            bitstream.save_vcs(Encoder(cfg, device=dev).encode_frames(
+                frames[:n]), ref_path, device=dev)
+            with open(ref_path, "rb") as fh:
+                ref_bytes = fh.read()
+            for gop, tile in meshes:
+                what = f"{case}, mesh {gop} x {tile}"
+                mesh = pmesh.make_mesh(gop, tile, positions[:gop * tile])
+                dec_s(enc_s(i_b, p_b, cfg, mesh), cfg, mesh)     # warm-up
+                torch.cuda.synchronize()
+                reset_counts()
+                got = enc_s(i_b, p_b, cfg, mesh)
+                path = os.path.join(tmp, "sharded.vcs")
+                bitstream.save_vcs(EncodedVideo(
+                    cfg, H, W, 25.0, n,
+                    [got.select(b) for b in range(n_gops)]), path,
+                    device=dev)
+                loaded = bitstream.load_vcs(path, device=dev)
+                dec = dec_s(type(got).stack(loaded.gops, dev), cfg, mesh)
+                torch.cuda.synchronize()
+                counts = read_counts()
+                for k, v in counts.items():
+                    launches[k] = launches.get(k, 0) + v
+                with open(path, "rb") as fh:
+                    if fh.read() != ref_bytes:
+                        fail(f"the sharded .vcs differs from the Encoder's "
+                             f"({what})")
+                for f in dataclasses.fields(got):
+                    a = getattr(got, f.name)
+                    b = getattr(want_stream, f.name)
+                    if (a is None) != (b is None) or (a is not None and (
+                            a.dtype != b.dtype or not torch.equal(a, b))):
+                        fail(f"sharded {f.name} differs from unsharded "
+                             f"({what})")
+                if dec.dtype != torch.uint8 or not torch.equal(dec,
+                                                               want_dec):
+                    fail(f"the sharded decode differs from the unsharded "
+                         f"decode ({what})")
+                missing = [k for k in want if counts[k] == 0]
+                if missing:
+                    fail(f"the sharded window never launched {missing} "
+                         f"({what})")
+                ms = {k: [] for k in ("enc_s", "enc_u", "dec_s", "dec_u")}
+                for rep in range(SPATIAL_REPS):
+                    order = ("s", "u") if rep % 2 == 0 else ("u", "s")
+                    for side in order:
+                        if side == "s":
+                            s, t_e = event_ms(
+                                lambda: enc_s(i_b, p_b, cfg, mesh))
+                            _, t_d = event_ms(lambda: dec_s(s, cfg, mesh))
+                        else:
+                            s, t_e = event_ms(
+                                lambda: unsharded_encode(i_b, p_b, cfg))
+                            _, t_d = event_ms(lambda: dec_u(s))
+                        ms["enc_" + side].append(t_e)
+                        ms["dec_" + side].append(t_d)
+                med = {k: float(np.median(v)) for k, v in ms.items()}
+                print(f"[{label}] {what}, {n_gops} GOPs of {cfg.gop_len} at "
+                      f"{W}x{H}: stream, .vcs ({len(ref_bytes)} bytes) and "
+                      f"decode identical to unsharded; encode ms sharded "
+                      f"{med['enc_s']:.3f} / unsharded {med['enc_u']:.3f}, "
+                      f"decode ms sharded {med['dec_s']:.3f} / unsharded "
+                      f"{med['dec_u']:.3f} (CUDA events, median of "
+                      f"{SPATIAL_REPS}; runs {json.dumps(ms)}) ({card})")
+                print(f"[{label}] {what}: kernel launches "
+                      f"{ {k: v for k, v in counts.items() if v} }")
+    print(f"[{label}] kernel launches {launches}; phase "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2908,6 +3091,8 @@ def main() -> int:
         launches[k] += v
     for k, v in distributed_phase(card, args.seed, single_vcs,
                                   single_s).items():
+        launches[k] += v
+    for k, v in spatial_phase(frames, card).items():
         launches[k] += v
 
     meta = {

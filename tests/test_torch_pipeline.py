@@ -352,6 +352,20 @@ with contextlib.redirect_stdout(io.StringIO()) as out:
 printed = out.getvalue()
 assert "encode" in printed and "sparsity (Y)" in printed, printed
 assert parallel.init_distributed() == (0, 1)
+from vcs_h264_tpu_torch.parallel import mesh as pmesh, spatial
+from vcs_h264_tpu_torch.tools import bench_scaling
+assert bench_scaling.MESHES[0] == (1, 1)
+m = pmesh.make_mesh(1, 2, ["cpu", "cpu"])
+i_b = torch.from_numpy(rng.integers(0, 256, (1, 3, 64, 32), dtype=np.uint8))
+p_b = torch.from_numpy(rng.integers(0, 256, (1, 3, 3, 64, 32),
+                                    dtype=np.uint8))
+for cfg, enc, dec in (
+        (CodecConfig.production(intra_qstep=24),
+         spatial.sharded_encode_gop_batch, spatial.sharded_decode_gop_batch),
+        (CodecConfig.production(chroma_420=True, intra_qstep=24),
+         spatial.sharded_encode_gop_batch_420,
+         spatial.sharded_decode_gop_batch_420)):
+    assert dec(enc(i_b, p_b, cfg, m), cfg, m).shape == (1, 4, 3, 64, 32)
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "vcs_h264_tpu", "cv2"))
 launches = {**motion_cuda.LAUNCHES, **inter_cuda.LAUNCHES, **intra_cuda.LAUNCHES}

@@ -139,8 +139,6 @@ def _encode_b(yb, cb, prev_y, next_y, prev_c, next_c, cfg: CodecConfig,
     [N, H, W] and cb [N, 2, H/2, W/2], references prev_* and next_* of the
     same shapes -> (b_mv [N, 2, nbh, nbw, 2], mode int8 [N, nbh, nbw], the
     chosen predictions pred_y and pred_c, bres_y, bres_c)."""
-    bs = cfg.block_size
-    qy, qc = _tables(cfg, yb.device)
     # the B-frame axis is the search's GOP axis, one frame each
     mv_f = _search(yb[:, None], prev_y, cfg, backend)     # [N, 1, nbh, nbw, 2]
     mv_b = _search(yb[:, None], next_y, cfg, backend)
@@ -148,8 +146,19 @@ def _encode_b(yb, cb, prev_y, next_y, prev_c, next_c, cfg: CodecConfig,
                                             backend))
     pb_y, pb_c = (x[:, 0] for x in _predict(mv_b, next_y, next_c, cfg,
                                             backend))
-    # the mode: the smallest luma SAD; argmin takes the first minimum, so
-    # ties prefer forward, then backward, then the average
+    return (torch.stack([mv_f[:, 0], mv_b[:, 0]], dim=1),
+            *_choose_and_code(yb, cb, pf_y, pb_y, pf_c, pb_c, cfg))
+
+
+def _choose_and_code(yb, cb, pf_y, pb_y, pf_c, pb_c, cfg: CodecConfig):
+    """The B stage after its predictions, block by block: the per-block
+    mode by the smallest luma SAD and the residual of the chosen
+    prediction -> (mode int8 [N, nbh, nbw], pred_y, pred_c, bres_y,
+    bres_c)."""
+    bs = cfg.block_size
+    qy, qc = _tables(cfg, yb.device)
+    # argmin takes the first minimum, so ties prefer forward, then
+    # backward, then the average
     cur = yb.to(torch.int32)
     sads = torch.stack([
         motion.tile_sums((p.to(torch.int32) - cur).abs()[:, None], bs)
@@ -157,8 +166,8 @@ def _encode_b(yb, cb, prev_y, next_y, prev_c, next_c, cfg: CodecConfig,
     mode = torch.argmin(sads, dim=0).to(torch.int8)
     pred_y = _b_choice(mode, pf_y, pb_y, bs)
     pred_c = _b_choice(mode, pf_c, pb_c, bs // 2)
-    return (torch.stack([mv_f[:, 0], mv_b[:, 0]], dim=1), mode, pred_y,
-            pred_c, _code(yb, pred_y, qy), _code(cb, pred_c, qc))
+    return (mode, pred_y, pred_c, _code(yb, pred_y, qy),
+            _code(cb, pred_c, qc))
 
 
 def encode_intra_420(y_i: torch.Tensor, c_i: torch.Tensor, qstep: int,
