@@ -175,7 +175,7 @@ package. Phases, each of which exits nonzero on failure:
      the bytes equal the one-process .vcs, rank 0's assembling pass
      launches no K2, K3 or K5; the wall time beside the one-process encode.
      The ranks' launches are added to the kernels' record, as are phases 7,
-     8 and 10's.
+     8, 10 and 11's.
  10. the row-tiled (gop x tile) mesh (`spatial_phase`, parallel/spatial.py)
      on the clip's full GOPs, every mesh position on its own card where
      there are several, else all on cuda:0: the main path on meshes 2 x 2
@@ -186,6 +186,16 @@ package. Phases, each of which exits nonzero on failure:
      sharded stream equals the unsharded port's field for field, its .vcs
      the Encoder's bytes, its decode the unsharded decode; sharded and
      unsharded encode and decode ms by CUDA events.
+ 11. the measurement tools (`tools_phase`, vcs_h264_tpu_torch/tools/):
+     profile_stages at 1280x720 and exp_720_stages at 1280x720 and
+     1920x1080 on the 640x360 synthetic clip of --seed tiled 2x2 and 3x3,
+     each run as `python -m` in a process of its own: every stage's wall
+     ms and queued device ms positive, device ms at most 1.05x the wall
+     ms, its launches exactly the kernels its tool expects;
+     bench_sustained on the clip (main path): the streamed .vcs equal to
+     phase 8's bytes, every frame decoded, identical to Decoder.decode of
+     the file. The tools' JSON on [tools] lines; the launches of their
+     timed windows are added to the kernels' record.
 
 K2 has two kernels, chosen by shape in its C entry point: the word kernel
 (block sizes 4, 8, 16 on 4-byte boundaries; all main shapes) and the byte
@@ -260,30 +270,6 @@ def card_line() -> str:
     if out.returncode != 0:
         fail(f"nvidia-smi: {out.stderr.strip()}")
     return out.stdout.strip().splitlines()[0]
-
-
-def synthetic_clip(seed: int, n: int) -> list:
-    """Smooth random texture panned by at most 3 px/frame, a moving
-    rectangle, and +-2 noise: BGR uint8 [H, W, 3] frames."""
-    import torch
-    rng = np.random.default_rng(seed)
-    margin = 3 * n + 8
-    ch, cw = H + 2 * margin, W + 2 * margin
-    coarse = rng.uniform(0, 255, (1, 3, ch // 16 + 2, cw // 16 + 2))
-    tex = torch.nn.functional.interpolate(
-        torch.from_numpy(coarse), size=(ch, cw), mode="bicubic",
-        align_corners=False)[0].clamp(0, 255).permute(1, 2, 0).numpy()
-    vy, vx = rng.choice([-3, -2, -1, 1, 2, 3], 2)
-    color = rng.integers(0, 256, 3)
-    frames = []
-    for t in range(n):
-        oy, ox = margin + vy * t, margin + vx * t
-        f = tex[oy:oy + H, ox:ox + W].copy()
-        ry, rx = 200 + 2 * t, 300 + 5 * t
-        f[ry:ry + 96, rx:rx + 160] = color
-        f += rng.integers(-2, 3, f.shape)
-        frames.append(np.clip(np.rint(f), 0, 255).astype(np.uint8))
-    return frames
 
 
 SPIN_CYCLES = 2_000_000      # about a millisecond of an H100's clock
@@ -2113,17 +2099,6 @@ STREAM_DROPPED = (1, 5, 8)    # checkpoints deleted before the resume
 SURVEYED = 17                 # frames of the other paths' sync census
 
 
-class ClipReader:
-    """The clip as a reader: any iterable of frames with an `fps`."""
-    fps = 25.0
-
-    def __init__(self, frames):
-        self.frames = frames
-
-    def __iter__(self):
-        return iter(self.frames)
-
-
 def blocking_decode(video, gop_batch: int = 8, device: str = "cuda") -> list:
     """The decode as the port ran it before its host path: each batch
     stacked in host memory and copied up from pageable memory, its frames
@@ -2214,6 +2189,7 @@ def stream_phase(frames, card: str) -> dict:
     from vcs_h264_tpu_torch import CodecConfig
     from vcs_h264_tpu_torch.io import bitstream
     from vcs_h264_tpu_torch.models import Decoder, Encoder
+    from vcs_h264_tpu_torch.tools.clips import ClipReader
     from vcs_h264_tpu_torch.utils.metrics import MetricsLogger
     from vcs_h264_tpu_torch.utils.profiling import device_trace
 
@@ -2585,6 +2561,7 @@ def cli_phase(frames, card: str, seed: int) -> tuple:
     from vcs_h264_tpu_torch import CodecConfig, cli
     from vcs_h264_tpu_torch.io import bitstream
     from vcs_h264_tpu_torch.models import Decoder
+    from vcs_h264_tpu_torch.tools.clips import ClipReader
 
     label = "cli"
     t_phase = time.perf_counter()
@@ -2709,6 +2686,7 @@ def dist_rank_main(args) -> int:
     from vcs_h264_tpu_torch.io import bitstream
     from vcs_h264_tpu_torch.models import encoder as encoder_mod
     from vcs_h264_tpu_torch.parallel import distributed
+    from vcs_h264_tpu_torch.tools.clips import synthetic_clip
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3006,6 +2984,105 @@ def spatial_phase(frames, card: str) -> dict:
     return launches
 
 
+TOOLS_SLACK = 1.05      # device_ms may exceed ms by this much: two passes
+TOOLS_TIMEOUT_S = 300
+
+
+def run_tool(name: str, args: list, label: str) -> dict:
+    """`python -m vcs_h264_tpu_torch.tools.<name> *args` in a process of its
+    own, its lines printed under [label] -> its JSON (the last line)."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    proc = subprocess.run(
+        [sys.executable, "-m", f"vcs_h264_tpu_torch.tools.{name}", *args],
+        cwd=here, env={**os.environ, "PYTHONPATH": here}, capture_output=True,
+        text=True, timeout=TOOLS_TIMEOUT_S)
+    for line in proc.stdout.splitlines():
+        print(f"[{label}] {line}")
+    if proc.returncode:
+        fail(f"{name} {' '.join(args)} exited {proc.returncode}: "
+             f"{proc.stderr[-2000:]}")
+    return json.loads(proc.stdout.splitlines()[-1])
+
+
+def tools_phase(frames, card: str, seed: int, main_vcs: bytes) -> dict:
+    """Phase 11, the measurement tools of `vcs_h264_tpu_torch/tools/` on the
+    card: `profile_stages --res 720` and `exp_720_stages --tile 2` and
+    `--tile 3` on the synthetic source of `seed`, each in a process of its
+    own, as a user runs them. Every stage must have
+    ms > 0 and device_ms > 0, device_ms <= TOOLS_SLACK x ms, and launch
+    exactly the kernels of its tool's EXPECTED_KERNELS. Then
+    `bench_sustained.sustained` on the smoke's clip, main path: its `.vcs`
+    must equal `main_vcs` (the bytes `cli_phase` wrote), its decode must
+    give every frame, identical to Decoder.decode of the loaded file. Each
+    tool's JSON goes on [tools] lines. Returns the launches of the tools'
+    timed windows and of bench_sustained."""
+    from vcs_h264_tpu_torch import CodecConfig
+    from vcs_h264_tpu_torch.io import bitstream
+    from vcs_h264_tpu_torch.models import Decoder
+    from vcs_h264_tpu_torch.tools import (bench_sustained, clips,
+                                          exp_720_stages, profile_stages)
+
+    label = "tools"
+    t_phase = time.perf_counter()
+    runs = ((profile_stages, ["--res", "720"]),
+            (exp_720_stages, ["--tile", "2"]),
+            (exp_720_stages, ["--tile", "3"]))
+    print(f"[{label}] {card}")
+    launches = {k: 0 for k in read_counts()}
+    for tool, args in runs:
+        t0 = time.perf_counter()
+        out = run_tool(tool.__name__.rsplit(".", 1)[1], args + [
+            "--synthetic", str(seed), "--device", "cuda"], label)
+        what = f"{out['tool']} at {out['res']}"
+        if list(out["stages"]) != list(tool.EXPECTED_KERNELS):
+            fail(f"{what}: stages {list(out['stages'])}")
+        for name, r in out["stages"].items():
+            if not (r["ms"] > 0 and r["device_ms"] > 0):
+                fail(f"{what}, {name}: ms {r['ms']}, device_ms "
+                     f"{r['device_ms']}")
+            if r["device_ms"] > TOOLS_SLACK * r["ms"]:
+                fail(f"{what}, {name}: device_ms {r['device_ms']:.4f} above "
+                     f"{TOOLS_SLACK} x ms {r['ms']:.4f}")
+            if set(r["launches"]) != tool.EXPECTED_KERNELS[name]:
+                fail(f"{what}, {name}: launched {r['launches']}, expected "
+                     f"{sorted(tool.EXPECTED_KERNELS[name])}")
+            for k, v in r["launches"].items():
+                launches[k] += v * out["iters"]
+        print(f"[{label}] {what}: every stage launched its kernels and no "
+              f"other, device_ms <= {TOOLS_SLACK} x ms; "
+              f"{time.perf_counter() - t0:.1f} s ({card})")
+
+    cfg = CodecConfig.production(intra_qstep=QSTEP)
+    sink = FrameSink()
+    reset_counts()
+    with tempfile.TemporaryDirectory() as tmp:
+        out = bench_sustained.sustained(clips.ClipReader(frames), cfg,
+                                        device="cuda", out_dir=tmp, sink=sink)
+        for k, v in read_counts().items():
+            launches[k] += v
+        out["source"] = f"synthetic:{seed}, {W}x{H}, {len(frames)} frames"
+        path = os.path.join(tmp, "out.vcs")
+        with open(path, "rb") as fh:
+            blob = fh.read()
+        want = Decoder(device="cuda").decode(bitstream.load_vcs(path))
+    print(f"[{label}] {json.dumps(out)}")
+    if blob != main_vcs:
+        fail(f"bench_sustained's .vcs ({len(blob)} bytes) differs from the "
+             f"main path's ({len(main_vcs)} bytes)")
+    if out["frames"] != len(frames) or len(sink.frames) != len(frames):
+        fail(f"bench_sustained decoded {len(sink.frames)} frames of "
+             f"{out['frames']}, the clip has {len(frames)}")
+    if any(not np.array_equal(a, b) for a, b in zip(sink.frames, want)):
+        fail("bench_sustained's decode differs from Decoder.decode of the "
+             "same file")
+    print(f"[{label}] bench_sustained: .vcs identical to the main path's "
+          f"({len(blob)} bytes), {len(sink.frames)} frames identical to "
+          f"Decoder.decode's ({card})")
+    print(f"[{label}] kernel launches {launches}; phase "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3027,6 +3104,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     from vcs_h264_tpu_torch.ops import _build
+    from vcs_h264_tpu_torch.tools.clips import synthetic_clip
 
     # phase 1: the card
     card = card_line()
@@ -3093,6 +3171,8 @@ def main() -> int:
                                   single_s).items():
         launches[k] += v
     for k, v in spatial_phase(frames, card).items():
+        launches[k] += v
+    for k, v in tools_phase(frames, card, args.seed, single_vcs).items():
         launches[k] += v
 
     meta = {

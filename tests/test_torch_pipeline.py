@@ -366,6 +366,15 @@ for cfg, enc, dec in (
          spatial.sharded_encode_gop_batch_420,
          spatial.sharded_decode_gop_batch_420)):
     assert dec(enc(i_b, p_b, cfg, m), cfg, m).shape == (1, 4, 3, 64, 32)
+from vcs_h264_tpu_torch.tools import (bench_sustained, clips, exp_720_stages,
+                                      profile_stages)
+small = clips.planar(clips.synthetic_clip(0, 8, 16, 32))
+with contextlib.redirect_stdout(io.StringIO()):
+    assert len(profile_stages.main(small, 1, "cpu")["stages"]) == 10
+    assert len(exp_720_stages.main(small, 1, "cpu")["stages"]) == 7
+assert bench_sustained.sustained(
+    clips.ClipReader(clips.synthetic_clip(0, 5, 16, 32)),
+    CodecConfig.production(intra_qstep=24), device="cpu")["frames"] == 5
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "vcs_h264_tpu", "cv2"))
 launches = {**motion_cuda.LAUNCHES, **inter_cuda.LAUNCHES, **intra_cuda.LAUNCHES}
