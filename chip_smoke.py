@@ -175,7 +175,7 @@ package. Phases, each of which exits nonzero on failure:
      the bytes equal the one-process .vcs, rank 0's assembling pass
      launches no K2, K3 or K5; the wall time beside the one-process encode.
      The ranks' launches are added to the kernels' record, as are phases 7,
-     8, 10 and 11's.
+     8, 10, 11 and 12's.
  10. the row-tiled (gop x tile) mesh (`spatial_phase`, parallel/spatial.py)
      on the clip's full GOPs, every mesh position on its own card where
      there are several, else all on cuda:0: the main path on meshes 2 x 2
@@ -196,6 +196,26 @@ package. Phases, each of which exits nonzero on failure:
      phase 8's bytes, every frame decoded, identical to Decoder.decode of
      the file. The tools' JSON on [tools] lines; the launches of their
      timed windows are added to the kernels' record.
+ 12. the bench (`bench_phase`, vcs_h264_tpu_torch/bench.py): every step
+     of every key as `bench.keys` builds them (the provisional PSNR step,
+     the headline, production, 720p and 1080p with and without the
+     luma-only search, 4:2:0) at the bench's shapes, on the 640x360
+     synthetic clip of --seed, 64 frames, tiled 2x2 and 3x3: no host sync
+     in the counted call, exactly its kernels launched
+     (`bench.EXPECTED_KERNELS`: reference mode K2 and K1; production K5,
+     K2, K3, K4, and K6 in the intra decode loop; 4:2:0 K5, K2 at C = 1,
+     the bare-plane K3/K4 and K7), its outputs within the parity contract
+     of the same call on the plain versions (vectors, payloads and
+     full-resolution coefficients identical, bare-plane coefficients +-1
+     on < 1e-3, frames identical or +-1 on < 1e-4, the PSNR within 0.01
+     dB); each step's ms and device ms over its key's iterations, the
+     device ms of its rolls and of its sink alone and of the step without
+     them; then `python -m
+     vcs_h264_tpu_torch.bench` in a process of its own, its lines on
+     [bench] lines: exit 0, the seven keys > 0 on the last line, no
+     extras_error or provisional flag there, the card's name as its
+     device, psnr_capped99_db finite and >= 30. The counted steps'
+     launches are added to the kernels' record.
 
 K2 has two kernels, chosen by shape in its C entry point: the word kernel
 (block sizes 4, 8, 16 on 4-byte boundaries; all main shapes) and the byte
@@ -2988,20 +3008,21 @@ TOOLS_SLACK = 1.05      # device_ms may exceed ms by this much: two passes
 TOOLS_TIMEOUT_S = 300
 
 
-def run_tool(name: str, args: list, label: str) -> dict:
-    """`python -m vcs_h264_tpu_torch.tools.<name> *args` in a process of its
-    own, its lines printed under [label] -> its JSON (the last line)."""
+def run_tool(module: str, args: list, label: str,
+             timeout: float = TOOLS_TIMEOUT_S) -> list:
+    """`python -m <module> *args` in a process of its own, its lines
+    printed under [label] -> its lines."""
     here = os.path.dirname(os.path.abspath(__file__))
     proc = subprocess.run(
-        [sys.executable, "-m", f"vcs_h264_tpu_torch.tools.{name}", *args],
+        [sys.executable, "-m", module, *args],
         cwd=here, env={**os.environ, "PYTHONPATH": here}, capture_output=True,
-        text=True, timeout=TOOLS_TIMEOUT_S)
+        text=True, timeout=timeout)
     for line in proc.stdout.splitlines():
         print(f"[{label}] {line}")
     if proc.returncode:
-        fail(f"{name} {' '.join(args)} exited {proc.returncode}: "
+        fail(f"{module} {' '.join(args)} exited {proc.returncode}: "
              f"{proc.stderr[-2000:]}")
-    return json.loads(proc.stdout.splitlines()[-1])
+    return proc.stdout.splitlines()
 
 
 def tools_phase(frames, card: str, seed: int, main_vcs: bytes) -> dict:
@@ -3031,8 +3052,8 @@ def tools_phase(frames, card: str, seed: int, main_vcs: bytes) -> dict:
     launches = {k: 0 for k in read_counts()}
     for tool, args in runs:
         t0 = time.perf_counter()
-        out = run_tool(tool.__name__.rsplit(".", 1)[1], args + [
-            "--synthetic", str(seed), "--device", "cuda"], label)
+        out = json.loads(run_tool(tool.__name__, args + [
+            "--synthetic", str(seed), "--device", "cuda"], label)[-1])
         what = f"{out['tool']} at {out['res']}"
         if list(out["stages"]) != list(tool.EXPECTED_KERNELS):
             fail(f"{what}: stages {list(out['stages'])}")
@@ -3078,6 +3099,193 @@ def tools_phase(frames, card: str, seed: int, main_vcs: bytes) -> dict:
     print(f"[{label}] bench_sustained: .vcs identical to the main path's "
           f"({len(blob)} bytes), {len(sink.frames)} frames identical to "
           f"Decoder.decode's ({card})")
+    print(f"[{label}] kernel launches {launches}; phase "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+BENCH_TIMEOUT_S = 600
+BENCH_KEYS = ("production_fps_640x360", "encode_decode_fps_1280x720",
+              "encode_decode_fps_1280x720_lumasearch",
+              "chroma420_fps_640x352", "production_fps_1920x1080",
+              "production_fps_1920x1080_lumasearch")
+BENCH_PSNR_FLOOR_DB = 30.0
+BARE_PLANE = ("res_y", "res_c", "bres_y", "bres_c")
+
+
+def output_tensors(x, name: str = "out"):
+    """(name, tensor) of every tensor of a bench step's outputs: the fields
+    of the GOP records and intra payloads by name, tuples by position."""
+    import dataclasses
+    import torch
+    if torch.is_tensor(x):
+        yield name, x
+    elif dataclasses.is_dataclass(x):
+        for f in dataclasses.fields(x):
+            if getattr(x, f.name) is not None:
+                yield from output_tensors(getattr(x, f.name), f.name)
+    elif hasattr(x, "_fields"):
+        for k in x._fields:
+            yield from output_tensors(getattr(x, k), k)
+    else:
+        for i, v in enumerate(x):
+            yield from output_tensors(v, f"{name}[{i}]")
+
+
+def step_parity(got, want, what: str) -> str:
+    """Fails unless a step's outputs on the kernels are within the parity
+    contract of its outputs on the plain versions: bare-plane coefficients
+    +-1 on fewer than 1e-3 of them, frames (uint8) identical or +-1 on
+    fewer than 1e-4 of samples, float32 (reference mode's coefficients)
+    within 1e-3, every other integer (vectors, full-resolution
+    coefficients, the intra payload) identical -> a summary."""
+    import torch
+    pairs = list(zip(output_tensors(got), output_tensors(want)))
+    worst = {}
+    for (name, a), (name_p, b) in pairs:
+        if name != name_p or a.shape != b.shape or a.dtype != b.dtype:
+            fail(f"{what}: {name} {tuple(a.shape)} {a.dtype} against the "
+                 f"plain {name_p} {tuple(b.shape)} {b.dtype}")
+        d = (a.double() - b.double()).abs()
+        big = float(d.max()) if d.numel() else 0.0
+        share = float((d != 0).double().mean()) if d.numel() else 0.0
+        if name in BARE_PLANE:
+            ok, kind = big <= 1 and share < 1e-3, "bare-plane"
+        elif a.dtype == torch.uint8:
+            ok, kind = big <= 1 and share < 1e-4, "frames"
+        elif a.is_floating_point():
+            ok, kind = big <= 1e-3, "float"
+        else:
+            ok, kind = big == 0, "integers"
+        if not ok:
+            fail(f"{what}: {name} ({kind}) differs from the plain version's "
+                 f"by up to {big:g} on a share {share:.3e}")
+        w = worst.setdefault(kind, [0.0, 0.0])
+        w[0], w[1] = max(w[0], big), max(w[1], share)
+    return ", ".join(f"{k} max |diff| {b:g} share {s:.2e}"
+                     for k, (b, s) in worst.items())
+
+
+def roll_and_sink_ms(bench, fn, n: int) -> dict:
+    """The device ms (`_timing.measure`, n iterations) of the rolls and of
+    the sink of one call of the bench step `fn`, each timed alone on the
+    tensors that the call rolled and summed, and of the step without them
+    (`bare`: inputs not rolled, no sum)."""
+    import torch
+    from vcs_h264_tpu_torch.tools import _timing
+    seen = {"roll": [], "sink": []}
+    roll, sink = bench.roll, bench.sink
+    zero = torch.zeros((), dtype=torch.int64, device="cuda")
+    cuda = torch.device("cuda")
+    try:
+        bench.roll = lambda x, it: seen["roll"].append(x) or roll(x, it)
+        bench.sink = lambda *t: seen["sink"].append(t) or sink(*t)
+        fn(5)
+        bench.roll, bench.sink = (lambda x, it: x), (lambda *t: zero)
+        bare = _timing.measure(fn, n, cuda)["device_ms"]
+    finally:
+        bench.roll, bench.sink = roll, sink
+    return {"roll_device_ms": _timing.measure(
+                lambda it: [roll(x, it) for x in seen["roll"]], n,
+                cuda)["device_ms"],
+            "sink_device_ms": _timing.measure(
+                lambda it: [sink(*t) for t in seen["sink"]], n,
+                cuda)["device_ms"],
+            "bare_device_ms": bare}
+
+
+def bench_phase(card: str, seed: int) -> dict:
+    """Phase 12, vcs_h264_tpu_torch/bench.py on the card. In this process,
+    every step of every key as `bench.keys` builds them for the bench (the
+    seeded 640x360 synthetic clip, 64 frames, tiled 2x2 and 3x3): after a
+    warm call, the counted call under torch.cuda.set_sync_debug_mode("warn")
+    must make no host sync and launch exactly its kernels
+    (`bench.EXPECTED_KERNELS`), and its outputs must be within the parity
+    contract of the same call on the plain versions (`step_parity`; the
+    provisional step's PSNR within PSNR_TOL_DB of the plain one's); then
+    `_timing.measure` over the key's iterations (ms on the host clock,
+    device ms by CUDA events), the device ms of the step's rolls and of its
+    sink alone and of the step without them (`roll_and_sink_ms`), printed
+    as one JSON line. Then `python -m
+    vcs_h264_tpu_torch.bench` in a process of its own, its lines printed
+    under [bench]: it must exit 0, and its last line hold the seven keys,
+    each > 0, no extras_error and no provisional flag, the card's name as
+    its device, the clip as its source and a finite psnr_capped99_db of at
+    least BENCH_PSNR_FLOOR_DB. Returns the counted steps' launches."""
+    import torch
+    from vcs_h264_tpu_torch import bench
+    from vcs_h264_tpu_torch.tools import _timing, clips
+
+    label = "bench"
+    t_phase = time.perf_counter()
+    print(f"[{label}] {card}")
+    frames, source = clips.source_frames(None, seed, bench.N_FRAMES)
+    cuda = torch.device("cuda")
+    launches = {k: 0 for k in read_counts()}
+    steps = {}
+    for key in bench.keys(clips.planar(frames), cuda):
+        for loop, fn in key.loops.items():
+            name = f"{key.name} {loop}"
+            fn(0)
+            torch.cuda.synchronize()
+            reset_counts()
+            out, _, syncs = watch_syncs(lambda: fn(5))
+            torch.cuda.synchronize()
+            counts = {k: v for k, v in read_counts().items() if v}
+            if syncs:
+                fail(f"bench step {name} synchronized with the host: {syncs}")
+            if set(counts) != bench.EXPECTED_KERNELS[loop]:
+                fail(f"bench step {name} launched {counts}, expected "
+                     f"{sorted(bench.EXPECTED_KERNELS[loop])}")
+            for k, v in counts.items():
+                launches[k] += v
+            t0 = time.perf_counter()
+            plain = fn(5, "plain")[0]
+            plain_s = time.perf_counter() - t0
+            if loop == "psnr_step":
+                db, db_plain = (bench.psnr_capped99(m.cpu().numpy(), len(m))
+                                for m in (out[0], plain))
+                if abs(db - db_plain) > PSNR_TOL_DB:
+                    fail(f"bench psnr_capped99_db {db} against the plain "
+                         f"versions' {db_plain}")
+                parity = (f"psnr_capped99_db {db:.4f}, plain {db_plain:.4f}")
+            else:
+                parity = step_parity(out[0], plain, f"bench step {name}")
+            del out, plain
+            steps[name] = r = {**_timing.measure(fn, key.n_iters, cuda),
+                               **roll_and_sink_ms(bench, fn, key.n_iters)}
+            print(f"[{label}] step {name}: launches {counts}, no host sync; "
+                  f"against plain ({plain_s:.1f} s): {parity}; {r['ms']:.3f}"
+                  f" ms, device {r['device_ms']:.3f} ms an iteration (rolls "
+                  f"{r['roll_device_ms']:.3f}, sink {r['sink_device_ms']:.3f}"
+                  f", without them {r['bare_device_ms']:.3f}) ({card})")
+        del key
+    print(f"[{label}] {json.dumps({'steps': steps})}")
+
+    t0 = time.perf_counter()
+    lines = [json.loads(line) for line in run_tool(
+        "vcs_h264_tpu_torch.bench", ["--synthetic", str(seed), "--device",
+                                     "cuda"], label, BENCH_TIMEOUT_S)]
+    first, last = lines[0], lines[-1]
+    if not (first.get("provisional") and first["value"] == 0):
+        fail(f"the bench's first line is no placeholder: {first}")
+    if last["metric"] != "encode_decode_fps_640x360" or not last["value"] > 0:
+        fail(f"the bench's headline: {last['metric']} = {last['value']}")
+    missing = [k for k in BENCH_KEYS if not (last.get(k) or 0) > 0]
+    if missing:
+        fail(f"the bench's last line lacks {missing} (or they are not > 0)")
+    for flag in ("extras_error", "provisional"):
+        if flag in last:
+            fail(f"the bench's last line carries {flag}: {last[flag]}")
+    if last["device"] != torch.cuda.get_device_name(0):
+        fail(f"the bench ran on {last['device']}")
+    psnr = last["psnr_capped99_db"]
+    if not (np.isfinite(psnr) and psnr >= BENCH_PSNR_FLOOR_DB):
+        fail(f"the bench's psnr_capped99_db is {psnr}")
+    if last["source"] != source:
+        fail(f"the bench's source is {last['source']}, not {source}")
+    print(f"[{label}] bench: the seven keys > 0, psnr_capped99_db {psnr}, "
+          f"{time.perf_counter() - t0:.1f} s ({card})")
     print(f"[{label}] kernel launches {launches}; phase "
           f"{time.perf_counter() - t_phase:.1f} s")
     return launches
@@ -3173,6 +3381,8 @@ def main() -> int:
     for k, v in spatial_phase(frames, card).items():
         launches[k] += v
     for k, v in tools_phase(frames, card, args.seed, single_vcs).items():
+        launches[k] += v
+    for k, v in bench_phase(card, args.seed).items():
         launches[k] += v
 
     meta = {

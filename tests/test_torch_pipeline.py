@@ -375,6 +375,14 @@ with contextlib.redirect_stdout(io.StringIO()):
 assert bench_sustained.sustained(
     clips.ClipReader(clips.synthetic_clip(0, 5, 16, 32)),
     CodecConfig.production(intra_qstep=24), device="cpu")["frames"] == 5
+from vcs_h264_tpu_torch import bench
+bench.N_ITERS, bench.N_REPEAT = 1, 1
+bench.EXTRA_ITERS = dict.fromkeys(bench.EXTRA_ITERS, 1)
+with contextlib.redirect_stdout(io.StringIO()):
+    last = bench.run(clips.planar(clips.synthetic_clip(0, 8, 16, 32)), "cpu",
+                     source="synthetic:0, 16x32")
+assert "extras_error" not in last, last
+assert last["production_fps_1920x1080_lumasearch"] > 0, last
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "vcs_h264_tpu", "cv2"))
 launches = {**motion_cuda.LAUNCHES, **inter_cuda.LAUNCHES, **intra_cuda.LAUNCHES}
