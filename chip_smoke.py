@@ -19,7 +19,8 @@ package. Phases, each of which exits nonzero on failure:
   1. the card (nvidia-smi name and power limit), torch and CUDA versions;
      TF32 off for matmul and cuDNN;
   2. the kernel build (one nvcc per source, all at once) and the build of
-     the .vcs range coder (g++, native/bitstream.cpp), timed;
+     the .vcs range coder (g++, vcs_h264_tpu_torch/csrc/bitstream.cpp),
+     timed;
   3. every kernel against its plain PyTorch version on the card:
      a. K2/K3/K4 at small edge shapes (one block row, frames narrower than
         the search window, partial CTAs, one P-frame, vectors whose source
@@ -216,6 +217,16 @@ package. Phases, each of which exits nonzero on failure:
      extras_error or provisional flag there, the card's name as its
      device, psnr_capped99_db finite and >= 30. The counted steps'
      launches are added to the kernels' record.
+ 13. the package alone (`standalone_phase`): vcs_h264_tpu_torch/ copied
+     without its build/ into a temporary directory, and run there in a
+     process whose import path is that directory alone, with jax,
+     vcs_h264_tpu and cv2 refused: it builds its CUDA library with nvcc and
+     its .vcs range coder with g++ from the copy's own csrc/, and encodes
+     the clip on the card in the main path's configuration into .vcs. Exit
+     0, the native coder loaded, both libraries under the copy, the CUDA
+     library's name this process's, K2, K3 and K5 launched, the bytes the
+     main path's (phase 8's); both build times and the wall time printed.
+     Its launches are added to the kernels' record.
 
 K2 has two kernels, chosen by shape in its C entry point: the word kernel
 (block sizes 4, 8, 16 on 4-byte boundaries; all main shapes) and the byte
@@ -3291,6 +3302,141 @@ def bench_phase(card: str, seed: int) -> dict:
     return launches
 
 
+STANDALONE_TIMEOUT_S = 240
+STANDALONE_BLOCKED = ("jax", "vcs_h264_tpu", "cv2")
+
+# The stand-alone run: the package copy's own kernels and range coder built
+# (a RuntimeWarning there, the coder's failed build, is an error), the
+# clip encoded on the card in the main path's configuration and written to
+# argv[1]; one JSON line.
+_STANDALONE = """
+import importlib.abc
+import json
+import os
+import sys
+import time
+import warnings
+
+BLOCKED = %(blocked)r
+
+
+class Refuse(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in BLOCKED:
+            raise ImportError(f"{name} is refused in the stand-alone run")
+        return None
+
+
+sys.meta_path.insert(0, Refuse())
+t0 = time.perf_counter()
+import torch
+torch.set_num_threads(2)
+from vcs_h264_tpu_torch import CodecConfig
+from vcs_h264_tpu_torch.io import bitstream
+from vcs_h264_tpu_torch.models import Encoder
+from vcs_h264_tpu_torch.ops import _build, inter_cuda, intra_cuda, motion_cuda
+from vcs_h264_tpu_torch.tools.clips import synthetic_clip
+
+torch.zeros(1, device="cuda")
+with warnings.catch_warnings():
+    warnings.simplefilter("error", RuntimeWarning)
+    t1 = time.perf_counter()
+    _build.load_library()
+    t2 = time.perf_counter()
+    loaded = bitstream.native_loaded()
+    t3 = time.perf_counter()
+frames = synthetic_clip(%(seed)d, %(n)d)
+t4 = time.perf_counter()
+video = Encoder(CodecConfig.production(intra_qstep=%(qstep)d),
+                device="cuda").encode_frames(frames)
+bitstream.save_vcs(video, sys.argv[1])
+torch.cuda.synchronize()
+t5 = time.perf_counter()
+print("[standalone record] " + json.dumps(dict(
+    pkg=os.path.dirname(os.path.dirname(bitstream.__file__)),
+    cuda_library=str(_build.library_path()), nvcc_s=_build.build_seconds,
+    native_loaded=loaded,
+    native_src=str(bitstream.NATIVE_SRC),
+    native_library=str(bitstream.native_library_path()), gxx_s=t3 - t2,
+    start_s=t1 - t0, clip_s=t4 - t3, encode_save_s=t5 - t4,
+    launches={k: v for c in (motion_cuda.LAUNCHES, inter_cuda.LAUNCHES,
+                             intra_cuda.LAUNCHES) for k, v in c.items()})))
+"""
+
+
+def standalone_phase(card: str, seed: int, main_vcs: bytes) -> dict:
+    """Phase 13, the package with nothing of the repository beside it:
+    `vcs_h264_tpu_torch/` copied without its `build/` into a temporary
+    directory and run there in a process of its own whose import path is
+    that directory alone, with jax, vcs_h264_tpu and cv2 refused. The copy
+    builds its CUDA library (nvcc) and its .vcs range coder (g++) from its
+    own sources and writes the main path's .vcs of the clip. Fails unless
+    the process exits 0 within the time limit, the range coder loaded
+    there, both libraries lie under the copy, the CUDA library has the
+    name of this process's, K2, K3 and K5 launched, and the bytes equal the
+    main path's .vcs of this run. Prints both build times and the wall
+    time. Returns the copy's launches."""
+    from vcs_h264_tpu_torch.ops import _build
+    label = "standalone"
+    with tempfile.TemporaryDirectory() as tmp:
+        pkg = os.path.join(tmp, "vcs_h264_tpu_torch")
+        shutil.copytree(_build._PKG, pkg, ignore=shutil.ignore_patterns(
+            "build", "__pycache__"))
+        path = os.path.join(tmp, "standalone.vcs")
+        script = _STANDALONE % dict(blocked=STANDALONE_BLOCKED, seed=seed,
+                                    n=CLIP_FRAMES, qstep=QSTEP)
+        t0 = time.perf_counter()
+        try:
+            proc = subprocess.run(
+                [sys.executable, "-c", script, path], cwd=tmp,
+                env={**os.environ, "PYTHONPATH": tmp}, capture_output=True,
+                text=True, timeout=STANDALONE_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            fail(f"the stand-alone run took over {STANDALONE_TIMEOUT_S} s")
+        wall = time.perf_counter() - t0
+        if proc.returncode:
+            fail(f"the stand-alone run exited {proc.returncode}: "
+                 f"{proc.stdout[-2000:]}{proc.stderr[-2000:]}")
+        tag = "[standalone record] "
+        lines = [x for x in proc.stdout.splitlines() if x.startswith(tag)]
+        if not lines:
+            fail(f"the stand-alone run printed no record: {proc.stdout}")
+        rec = json.loads(lines[-1][len(tag):])
+        with open(path, "rb") as fh:
+            blob = fh.read()
+    under = pkg + os.sep
+    if not rec["native_loaded"]:
+        fail(f"the stand-alone run coded .vcs without the native coder: "
+             f"{rec}")
+    if rec["pkg"] != pkg or not all(
+            rec[k].startswith(under)
+            for k in ("cuda_library", "native_src", "native_library")):
+        fail(f"the stand-alone run used files outside its copy: {rec}")
+    if os.path.basename(rec["cuda_library"]) != _build.library_path().name:
+        fail(f"the copy's CUDA library is {rec['cuda_library']}, not "
+             f"{_build.library_path().name}")
+    if rec["nvcc_s"] is None:
+        fail("the copy's CUDA library was not built from its sources")
+    launches = rec["launches"]
+    if any(not launches[k] for k in ("sad_search", "fused_p_encode",
+                                     "intra_encode")):
+        fail(f"the stand-alone encode launched {launches}")
+    if blob != main_vcs:
+        fail(f"the stand-alone .vcs ({len(blob)} bytes) differs from the "
+             f"main path's ({len(main_vcs)} bytes)")
+    print(f"[{label}] the package alone (jax, vcs_h264_tpu, cv2 refused): "
+          f"nvcc {rec['nvcc_s']:.2f} s -> "
+          f"{os.path.basename(rec['cuda_library'])}, g++ "
+          f"{rec['gxx_s']:.2f} s -> "
+          f"{os.path.basename(rec['native_library'])}; start-up "
+          f"{rec['start_s']:.2f} s, clip {rec['clip_s']:.2f} s, encode and "
+          f"save {rec['encode_save_s']:.2f} s; .vcs {len(blob)} bytes "
+          f"identical to the main path's; wall {wall:.2f} s ({card})")
+    print(f"[{label}] kernel launches "
+          f"{ {k: v for k, v in launches.items() if v} }")
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3383,6 +3529,8 @@ def main() -> int:
     for k, v in tools_phase(frames, card, args.seed, single_vcs).items():
         launches[k] += v
     for k, v in bench_phase(card, args.seed).items():
+        launches[k] += v
+    for k, v in standalone_phase(card, args.seed, single_vcs).items():
         launches[k] += v
 
     meta = {

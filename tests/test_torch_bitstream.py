@@ -86,16 +86,18 @@ def test_native_coder_is_loaded():
 
 
 def test_native_build_writes_only_the_port_build_dir(tmp_path, monkeypatch):
-    """A fresh build lands in the build directory under a temporary name
-    first; the source's directory is left as it was. The source is a copy
-    in a directory of the test's own: the repository's `native/` may be
-    written meanwhile by the JAX package's `make` in another process, so
+    """The coder is built from the package's own source. A fresh build
+    lands in the build directory under a temporary name first; the source's
+    directory is left as it was. The source is a copy in a directory of the
+    test's own, so that its listing holds still; the JAX package's
+    `native/` may be written meanwhile by its `make` in another process, so
     there only the absence of the port's library names is checked."""
     import shutil
+    assert bits.NATIVE_SRC == _build.CSRC / "bitstream.cpp"
     native = os.path.join(REPO, "native")
-    src_dir = tmp_path / "native"
+    src_dir = tmp_path / "csrc"
     src_dir.mkdir()
-    shutil.copy(os.path.join(native, "bitstream.cpp"), src_dir)
+    shutil.copy(_build.CSRC / "bitstream.cpp", src_dir)
     monkeypatch.setattr(bits, "NATIVE_SRC", src_dir / "bitstream.cpp")
 
     def listing():

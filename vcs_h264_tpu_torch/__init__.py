@@ -29,11 +29,11 @@ Layout:
               wrappers), motion_cuda, inter_cuda and intra_cuda (kernel
               wrappers, with the plain versions of K3/K4/K7 in inter_cuda),
               _build (nvcc)
-  csrc/       the CUDA kernels
+  csrc/       the CUDA kernels, and the .vcs range coder's C++ source
   models/     gop (.npz container), pipeline, pipeline420, intra_codec,
               encoder (checkpoints, hooks, streaming), decoder, host_path
               (pinned staging and copy streams)
-  io/         bitstream (.vcs container: the range coder, native/bitstream.cpp
+  io/         bitstream (.vcs container: the range coder, csrc/bitstream.cpp
               built with g++, and its Python mirror), video (cv2 reader and
               writer, imported inside)
   utils/      metrics (PSNR, SSIM, sparsity, JSONL logger), profiling

@@ -6,12 +6,13 @@
              payload) | range-coded MVs | range-coded quantized
              coefficients (zigzag per block) | B-frame section
 
-The entropy coders are host code over numpy. `native/bitstream.cpp` at the
-repo root, the JAX package's C++ source, is built here with `g++` into
-`vcs_h264_tpu_torch/build/` under a name keyed by a hash of the source and
-the flags, and loaded through ctypes; its pure-Python mirror, copied from
-the JAX package unchanged, codes the same bytes when no compiler is at
-hand. `native_loaded()` says which one is in use.
+The entropy coders are host code over numpy. The package's own C++ source,
+`vcs_h264_tpu_torch/csrc/bitstream.cpp` (a copy of the JAX package's
+`native/bitstream.cpp`, held to its bytes by the tests), is built here with
+`g++` into `vcs_h264_tpu_torch/build/` under a name keyed by a hash of the
+source and the flags, and loaded through ctypes; its pure-Python mirror,
+copied from the JAX package unchanged, codes the same bytes when no compiler
+is at hand. `native_loaded()` says which one is in use.
 
 Writing and loading run the per-GOP entropy coding on a thread pool (the C
 entry points release the GIL). The loader then decodes the I-frames of up
@@ -72,11 +73,12 @@ _VERSION = 11
 GOP_CHUNK = 16
 
 # ---------------------------------------------------------------------------
-# the native coder: built from the repo's native/bitstream.cpp with g++
+# the native coder: built from the package's csrc/bitstream.cpp with g++
 
 
-NATIVE_SRC = _build._PKG.parent / "native" / "bitstream.cpp"
-CXX_FLAGS = ("-O3", "-Wall", "-shared", "-fPIC")     # native/Makefile's
+NATIVE_SRC = _build.CSRC / "bitstream.cpp"
+# the flags of the JAX package's native/Makefile
+CXX_FLAGS = ("-O3", "-Wall", "-shared", "-fPIC")
 
 _i16p = ctypes.POINTER(ctypes.c_int16)
 _u8p = ctypes.POINTER(ctypes.c_uint8)
@@ -259,7 +261,7 @@ def _py_decode(blob: bytes, n: int) -> np.ndarray:
 
 # ---------------------------------------------------------------------------
 # v8 adaptive range coder — bit-identical Python mirror of the C++ in
-# native/bitstream.cpp (namespace rc). 12-bit probabilities, >>5 adaptation,
+# csrc/bitstream.cpp (namespace rc). 12-bit probabilities, >>5 adaptation,
 # LZMA-style carry-less renormalization; truncated-unary binarization with
 # per-bin contexts and exp-Golomb0 bypass tails. See the C++ header comment
 # for the design rationale (plain exp-Golomb spent ~9 bits/nonzero; raw int8
@@ -448,7 +450,7 @@ def _py_rc_decode_i16(blob: bytes, n: int) -> np.ndarray:
 
 
 # ---- v9: zigzag-band-conditioned coefficient contexts + MV coder ----------
-# Bit-identical mirrors of native/bitstream.cpp vcs_rc_*_i16_b / vcs_rc_*_mv.
+# Bit-identical mirrors of csrc/bitstream.cpp vcs_rc_*_i16_b / vcs_rc_*_mv.
 # Rationale in the C++ header: the v8 single-context token model ignores
 # that run/level statistics differ sharply by zigzag band, and wastes its
 # run contexts on the near-binary MV streams.
@@ -663,7 +665,7 @@ def _py_rc_encode_i16_sig(data: np.ndarray, nf: int, nc: int, nbh: int,
     """v11 mirror: significance-map coefficient coder — CBF with
     (left, up, temporal, luma co-located) contexts, per-position sig flags
     with (position bucket, temporal sig, previous sig) contexts, band+gt1
-    level contexts, explicit last flag. See native/bitstream.cpp v11."""
+    level contexts, explicit last flag. See csrc/bitstream.cpp v11."""
     data = np.asarray(data, np.int16).ravel()
     bpp = nbh * nbw
     bpf = bpp * nc
