@@ -28,7 +28,19 @@ package. Phases, each of which exits nonzero on failure:
         K3/K4 within 1 on at most 2 values per shape; then K2 alone, both
         of its kernels, at the shapes its word loads, shifted window copies
         and static skip can get wrong (`search_edge_phase`): vectors
-        identical; and K4 alone where its strips of 16 blocks, 16-byte loads
+        identical; then K2 at every search geometry the JAX package runs
+        (`search_geometry_phase`: G1-G5, full and long searches in the word
+        kernel; G6-G8, bs 32 and 64 in the byte kernel; G9 and a bs 8 window
+        of 315 KB in the direct form; 2 GOPs x 3 P-frames at 1280x720, or
+        1280x704): the C entry point's form equal to
+        `motion_cuda.sad_search_form`, vectors identical to the plain search
+        through `motion.motion_search_gops` (which never reaches the plain
+        search) and one byte off a word boundary, each form timed with its
+        bound; the first 8 frames through Encoder -> .vcs -> Decoder at
+        production(intra_qstep=24, search_reach=32, search_step=1) against
+        the plain path (vectors identical, PSNR within 0.01 dB), and the
+        CLI's encode core at --block-size 64 --no-dct against the plain
+        Encoder; and K4 alone where its strips of 16 blocks, 16-byte loads
         and shifted reference words can go wrong (`fused_decode_edge_phase`:
         widths 8 to 264, one block row, one P-frame, vectors far outside and
         at the int32 extremes, coefficients at +-32767), same bound; and K3
@@ -228,9 +240,11 @@ package. Phases, each of which exits nonzero on failure:
      main path's (phase 8's); both build times and the wall time printed.
      Its launches are added to the kernels' record.
 
-K2 has two kernels, chosen by shape in its C entry point: the word kernel
-(block sizes 4, 8, 16 on 4-byte boundaries; all main shapes) and the byte
-kernel (everything else). K1 has two forms, chosen by its wrapper: the fast
+K2 has three forms, chosen by shape in its C entry point: the word kernel
+(block sizes 4, 8, 16 on 4-byte boundaries; all main shapes), the byte
+kernel (any window that fits a block's shared memory) and the direct form
+(everything else); the `sad_search` entry's "geometries" lists each search
+geometry's form, shared bytes, times and bound. K1 has two forms, chosen by its wrapper: the fast
 form (block sizes 4, 8, 16, rows of a multiple of 16 bytes, aligned
 operands; all main shapes) and the general form. The `sad_search` entry's
 "earlier_ms" is the byte kernel at the main shape, reached through operands
@@ -929,6 +943,153 @@ def search_edge_phase() -> None:
           "byte kernel, bs 2-16, steps 1-3, reaches 5-16, C 1-3, widths "
           "24-136, static / moving / mixed / flat frames, thresholds -1 to "
           "the maximum")
+
+
+# K2's search geometries beyond the main path's: (name, bs, reach, step, C,
+# frame rows, the form of aligned operands). G1-G5 fit the word kernel, G6-G8
+# the byte kernel with its shared memory opted into; G9 and G10 (a bs 8
+# window of 315 KB) fit no block's shared memory and take the direct form.
+# bs 32 and 64 crop the clip to 704 rows, as the CLI's reader does.
+SEARCH_GEOMETRIES = (
+    ("G1", 8, 32, 1, 3, H, "words"), ("G2", 8, 32, 1, 1, H, "words"),
+    ("G3", 8, 64, 4, 3, H, "words"), ("G4", 4, 64, 4, 3, H, "words"),
+    ("G5", 8, 64, 1, 1, H, "words"), ("G6", 32, 64, 11, 3, 704, "bytes"),
+    ("G7", 64, 16, 3, 3, 704, "bytes"), ("G8", 64, 128, 21, 1, 704, "bytes"),
+    ("G9", 64, 128, 21, 3, 704, "direct"),
+    ("G10", 8, 160, 4, 3, H, "direct"))
+GEOMETRY_GOPS = 2
+
+
+def plain_calls():
+    """A patch of `motion.motion_search_plain` that counts its calls
+    (`.call_count`) while entered: the card's dispatcher must never reach
+    it."""
+    from unittest import mock
+    from vcs_h264_tpu_torch.ops import motion
+    return mock.patch.object(motion, "motion_search_plain",
+                             wraps=motion.motion_search_plain)
+
+
+def search_geometry_phase(frames, card: str):
+    """Phase 3a, K2 at every search geometry the JAX package runs: at each
+    of SEARCH_GEOMETRIES, 2 GOPs x 3 P-frames of the clip (C = 1: its G
+    channel), the C entry point's form, shared memory and threads equal to
+    `motion_cuda.sad_search_form`'s, aligned and one byte off a word
+    boundary; `motion.motion_search_gops` on the card (never reaching the
+    plain search) and `sad_search` on misaligned copies identical to the
+    plain search, each in its expected form; each geometry timed with its
+    bound. Then the first 8 frames through Encoder -> .vcs -> Decoder at
+    production(intra_qstep=24, search_reach=32, search_step=1) against the
+    plain path (vectors identical, PSNR within 0.01 dB, K2 launched), and
+    the CLI's encode core at --block-size 64 --no-dct against the plain
+    Encoder. Returns (the geometries' record, the two runs' launches)."""
+    import contextlib
+    import io
+    import torch
+    from vcs_h264_tpu_torch import CodecConfig, cli
+    from vcs_h264_tpu_torch.models import Encoder
+    from vcs_h264_tpu_torch.ops import motion, motion_cuda
+    from vcs_h264_tpu_torch.tools.clips import ClipReader
+
+    t_phase = time.perf_counter()
+    gop_len = P_PER_GOP + 1
+    clip = torch.from_numpy(np.stack(frames[:GEOMETRY_GOPS * gop_len])).cuda()
+    clip = clip.permute(0, 3, 1, 2).reshape(GEOMETRY_GOPS, gop_len, 3, H, W)
+    record = []
+    for name, bs, reach, step, c, rows, form in SEARCH_GEOMETRIES:
+        part = clip[:, :, 1:2] if c == 1 else clip
+        refs = part[:, 0, :, :rows].contiguous()
+        curs = part[:, 1:, :, :rows].contiguous()
+        search = dict(bs=bs, reach=reach, step=step, static_threshold=2000)
+        want, plain_ms = event_ms(
+            lambda: motion.motion_search_plain(curs, refs, **search))
+        form_off = "bytes" if form == "words" else form
+        for cu, rf, expect in ((curs, refs, form),
+                               (misaligned(curs), misaligned(refs), form_off)):
+            aligned = (cu.data_ptr() | rf.data_ptr()) % 4 == 0
+            py = motion_cuda.sad_search_form(c, bs, reach, step, aligned)
+            cq = motion_cuda.sad_search_form_c(c, bs, reach, step, aligned)
+            if py != cq or py[0] != expect:
+                fail(f"K2's form at {name}: C {cq}, Python {py}, expected "
+                     f"{expect}")
+            before = dict(motion_cuda.FORMS)
+            with plain_calls() as plain:
+                got = motion.motion_search_gops(cu, rf, **search)
+            torch.cuda.synchronize()
+            took = {k: v - before[k] for k, v in motion_cuda.FORMS.items()
+                    if v != before[k]}
+            if plain.call_count or took != {expect: 1}:
+                fail(f"K2 at {name}: the dispatcher reached the plain "
+                     f"search {plain.call_count} times, forms {took}")
+            if not torch.equal(got, want):
+                fail(f"K2 differs from the plain search at {name} "
+                     f"(operands at {cu.data_ptr() % 4} mod 4)")
+        _, once = event_ms(lambda: motion_cuda.sad_search(curs, refs,
+                                                            **search))
+        ms = kernel_ms(lambda: motion_cuda.sad_search(curs, refs, **search),
+                       20 if once < 5 else 3)
+        b = search_bound(curs, refs, want, search)
+        record.append(dict(name=name, bs=bs, reach=reach, step=step, c=c,
+                           shape=list(curs.shape), form=form,
+                           shared_bytes=motion_cuda.sad_search_form(
+                               c, bs, reach, step, True)[1],
+                           ms=ms, plain_ms=plain_ms, **b))
+        print(f"[K2 {name}] bs {bs}, reach {reach}, step {step}, C {c}, "
+              f"{list(curs.shape)}: {form} form (misaligned {form_off}), "
+              f"C query = Python; "
+              f"vectors identical to the plain search both ways; kernel "
+              f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+              f"{b['bound_ms']:.4f} ms by {b['bound_by']} ({card})")
+
+    cfg = CodecConfig.production(intra_qstep=QSTEP, search_reach=32,
+                                 search_step=1)
+    head = frames[:2 * cfg.gop_len]
+    reset_counts()
+    with plain_calls() as plain:
+        dec, video, *_ = run_codec(head, "auto", cfg, container="vcs")
+    launches = read_counts()
+    dec_p, video_p, *_ = run_codec(head, "plain", cfg)
+    same_mv = stream_diff(video, video_p)[0]
+    kinds = frame_kinds(cfg, len(head))
+    gaps = {k: abs(psnr_of(dec, head, [i for i in kinds if kinds[i] == k])
+                   - psnr_of(dec_p, head, [i for i in kinds if kinds[i] == k]))
+            for k in ("I", "P")}
+    if not same_mv or max(gaps.values()) > PSNR_TOL_DB \
+            or not launches["sad_search"] or plain.call_count:
+        fail(f"the Encoder at reach 32, step 1: vectors identical {same_mv}, "
+             f"PSNR gaps {gaps}, launches {launches}, plain search reached "
+             f"{plain.call_count} times")
+    print(f"[K2 encoder] production(intra_qstep={QSTEP}, search_reach=32, "
+          f"search_step=1) on {len(head)} frames of {W}x{H} -> .vcs -> "
+          f"Decoder: vectors identical to the plain path, PSNR gaps {gaps} "
+          f"dB, launches {launches}")
+
+    args = cli.build_parser().parse_args(
+        ["encode", "clip", "-o", "out.vcs", "--block-size", "64",
+         "--no-dct"])
+    cfg64 = cli._cfg(args)
+    cropped = [f[:H - H % 64] for f in frames]
+    reset_counts()
+    with tempfile.TemporaryDirectory() as tmp, plain_calls() as plain, \
+            contextlib.redirect_stdout(io.StringIO()):
+        video64, _, _ = cli.encode_reader(ClipReader(cropped), cfg64,
+                                          os.path.join(tmp, "out.vcs"),
+                                          device="cuda")
+    cli_launches = read_counts()
+    video64_p = Encoder(cfg64, device="cuda", backend="plain").encode_frames(
+        cropped)
+    if not stream_diff(video64, video64_p)[0] or plain.call_count \
+            or not cli_launches["sad_search"]:
+        fail(f"the CLI's encode core at --block-size 64 --no-dct: vectors "
+             f"differ from the plain Encoder's, or launches {cli_launches}, "
+             f"plain search reached {plain.call_count} times")
+    for k, v in cli_launches.items():
+        launches[k] += v
+    print(f"[K2 cli] encode core at --block-size 64 --no-dct on "
+          f"{len(cropped)} frames of {W}x{H - H % 64}: vectors identical to "
+          f"the plain Encoder's, launches {cli_launches}; phase "
+          f"{time.perf_counter() - t_phase:.1f} s ({card})")
+    return record, launches
 
 
 def escape_plane(h, w):
@@ -3496,11 +3657,13 @@ def main() -> int:
     fused_decode_edge_phase()
     fused_encode_edge_phase()
     search_edge_phase()
+    geometries, geometry_launches = search_geometry_phase(frames, card)
     intra_edge_phase()
     decode_edge_phase()
     compensate_edge_phase()
     plane_edge_phase()
     kernels = kernel_phase(frames, card)
+    kernels["sad_search"]["geometries"] = geometries
     i_frames = np.stack(frames[:GOPS * (P_PER_GOP + 1):P_PER_GOP + 1])
     kernels.update(intra_kernel_phase(
         torch.from_numpy(i_frames).cuda().permute(0, 3, 1, 2)
@@ -3514,6 +3677,8 @@ def main() -> int:
     for cfg, label, kw in main_paths():
         for k, v in main_path_phase(frames, card, cfg, label, **kw).items():
             launches[k] = launches.get(k, 0) + v
+    for k, v in geometry_launches.items():
+        launches[k] += v
     for k, v in stream_phase(frames, card).items():
         launches[k] += v
     for k, v in study_phase(frames, card).items():

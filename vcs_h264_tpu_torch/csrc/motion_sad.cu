@@ -48,18 +48,34 @@
 // A warp-shuffle min over packed keys picks the winner; the [G, F, nbh, nbw,
 // K, K] SAD tensor never reaches device memory.
 //
-// sad_search_bytes_kernel, one byte per step, stays for the shapes the word
-// kernel does not take (another block size, operands not on a 4-byte
-// boundary, a window whose four copies exceed a block's shared memory);
-// vcs_sad_search chooses between them by shape alone.
+// Three forms, chosen by shape alone (sad_search_form in sad_form.cuh,
+// which vcs_sad_search_form reports without launching anything, and which
+// ops/motion_cuda.py:sad_search_form repeats):
+//   * words: the word kernel above, for block sizes 4, 8 and 16 on 4-byte
+//     boundaries whose four window copies fit a block's shared memory;
+//   * bytes: sad_search_bytes_kernel, one byte per step, the window staged
+//     once per GOP and the current block per frame, both as bytes, for any
+//     block size and alignment whose window fits a block's shared memory
+//     (227 KB, opted into above 48 KB);
+//   * direct: sad_search_direct_kernel, for windows too large for any
+//     block's shared memory. It stages nothing: each thread reads its
+//     candidate's reference bytes, and the current block's (the same
+//     address across a warp, one broadcast), from device memory through
+//     the read-only cache. It needs no shared memory beyond its
+//     reductions', so it takes every geometry the search admits.
+// All three keep each thread's running packed key and take the minimum over
+// threads in any order: the key is unique per candidate, so the minimum is
+// the first minimum in row-major order whatever the order of the reduction.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "sad_form.cuh"
+
 namespace {
 
-constexpr int kMaxThreads = 1024;
-constexpr int kMaxSharedBytes = 232448;   // dynamic shared memory a block may opt into
+using namespace vcs_sad;
+
 constexpr uint32_t kHigh = 0x80808080u;   // bit 7 of each byte
 constexpr uint32_t kOnes = 0x01010101u;
 
@@ -220,7 +236,7 @@ __global__ void sad_search_words_kernel(const uint8_t* __restrict__ curs,
 }
 
 // grid (nbw, nbh, G), block = K*K rounded up to a multiple of 32 (<= 1024).
-// dynamic shared memory: C*bs*bs ints of block + C*win*win bytes of window.
+// dynamic shared memory: C*bs*bs bytes of block + C*win*win bytes of window.
 __global__ void sad_search_bytes_kernel(const uint8_t* __restrict__ curs,
                                         const uint8_t* __restrict__ refs,
                                         int32_t* __restrict__ mv_out,
@@ -228,8 +244,8 @@ __global__ void sad_search_bytes_kernel(const uint8_t* __restrict__ curs,
                                         int reach, int step, int K, int win,
                                         int sh, int sent, int static_threshold) {
   extern __shared__ __align__(16) unsigned char smem[];
-  int* cur_s = reinterpret_cast<int*>(smem);            // [C, bs, bs]
-  uint8_t* win_s = smem + sizeof(int) * C * bs * bs;    // [C, win, win]
+  uint8_t* cur_s = smem;                   // [C, bs, bs]
+  uint8_t* win_s = smem + C * bs * bs;     // [C, win, win]
   __shared__ int red_key[kMaxThreads / 32];
   __shared__ int red_stat[kMaxThreads / 32];
 
@@ -271,10 +287,10 @@ __global__ void sad_search_bytes_kernel(const uint8_t* __restrict__ curs,
         int sad = 0;
         for (int c = 0; c < C; ++c) {
           const uint8_t* wrow = win_s + c * win2 + oi * win + oj;
-          const int* crow = cur_s + c * bsq;
+          const uint8_t* crow = cur_s + c * bsq;
           for (int y = 0; y < bs; ++y)
             for (int x = 0; x < bs; ++x)
-              sad += (static_cast<int>(wrow[y * win + x]) - crow[y * bs + x]) & 255;
+              sad += (static_cast<int>(wrow[y * win + x]) - static_cast<int>(crow[y * bs + x])) & 255;
         }
         key = min(key, (sad << sh) + cand + 1);
       }
@@ -284,7 +300,8 @@ __global__ void sad_search_bytes_kernel(const uint8_t* __restrict__ curs,
     const int ri = ci - lo_i, rj = cj - lo_j;
     for (int idx = tid; idx < C * bsq; idx += nthr) {
       const int c = idx / bsq, y = (idx / bs) % bs, x = idx % bs;
-      stat += max(static_cast<int>(win_s[c * win2 + (ri + y) * win + rj + x]) - cur_s[idx], 0);
+      stat += max(static_cast<int>(win_s[c * win2 + (ri + y) * win + rj + x]) -
+                  static_cast<int>(cur_s[idx]), 0);
     }
 
     key = warp_min(key);
@@ -300,25 +317,82 @@ __global__ void sad_search_bytes_kernel(const uint8_t* __restrict__ curs,
   }
 }
 
-// Words between the shifted window copies: the least padding of c_words for
-// which the candidates of each warp (consecutive flat indices, copy
-// (step * kj) & 3, word row step * ki) fall on the fewest common banks.
-int padded_copy_words(int c_words, int K, int step, int n_w) {
-  int best_pad = 0, best_cost = 1 << 30;
-  for (int pad = 0; pad < 32; ++pad) {
-    int cost = 0;
-    for (int first = 0; first < K * K; first += 32) {
-      int hits[32] = {0}, worst = 0;
-      for (int cand = first; cand < K * K && cand < first + 32; ++cand) {
-        const int col = step * (cand % K);
-        const int bank = ((col & 3) * (c_words + pad) + step * (cand / K) * n_w + (col >> 2)) & 31;
-        if (++hits[bank] > worst) worst = hits[bank];
-      }
-      cost += worst;
+// grid (nbw, nbh, G), block = K*K rounded up to a multiple of 32 (<= 1024,
+// so at most 64 registers a thread), no dynamic shared memory: every sample
+// is read from device memory. The static check comes first, as in the word
+// kernel, and a static block skips its candidates.
+__global__ void __launch_bounds__(kMaxThreads)
+sad_search_direct_kernel(const uint8_t* __restrict__ curs, const uint8_t* __restrict__ refs,
+                         int32_t* __restrict__ mv_out, int F, int C, int H, int W, int bs,
+                         int reach, int step, int K, int sh, int sent, int static_threshold) {
+  __shared__ int red_key[kMaxThreads / 32];
+  __shared__ int red_stat[kMaxThreads / 32];
+
+  const int bj = blockIdx.x, bi = blockIdx.y, g = blockIdx.z;
+  const int nbw = W / bs, nbh = H / bs;
+  const int tid = threadIdx.x, nthr = blockDim.x;
+  const int lane = tid & 31, warp = tid >> 5, nwarps = nthr >> 5;
+  const int ci = bi * bs, cj = bj * bs;
+  const int lo_i = max(ci - reach, 0), hi_i = min(ci + reach, H);
+  const int lo_j = max(cj - reach, 0), hi_j = min(cj + reach, W);
+  const size_t plane = static_cast<size_t>(H) * W;
+  const uint8_t* ref = refs + static_cast<size_t>(g) * C * plane;
+  const int bsq = bs * bs;
+  const int masked = sent + ((1 << sh) - 1);
+
+  for (int f = 0; f < F; ++f) {
+    const uint8_t* cur = curs + (static_cast<size_t>(g) * F + f) * C * plane;
+    __syncthreads();   // the previous frame's reductions consumed
+    int stat = 0;
+    for (int idx = tid; idx < C * bsq; idx += nthr) {
+      const int c = idx / bsq, y = (idx / bs) % bs, x = idx % bs;
+      const size_t at = c * plane + static_cast<size_t>(ci + y) * W + cj + x;
+      stat += max(static_cast<int>(__ldg(ref + at)) - static_cast<int>(__ldg(cur + at)), 0);
     }
-    if (cost < best_cost) { best_cost = cost; best_pad = pad; }
+    stat = warp_sum(stat);
+    if (lane == 0) red_stat[warp] = stat;
+    __syncthreads();
+    stat = 0;
+    for (int w = 0; w < nwarps; ++w) stat += red_stat[w];
+    int32_t* o = mv_out + ((((static_cast<size_t>(g) * F + f) * nbh + bi) * nbw + bj) * 2);
+    if (stat <= static_threshold) {            // the same for every thread of the CTA
+      if (tid == 0) { o[0] = 0; o[1] = 0; }
+      continue;
+    }
+
+    int key = masked;
+    for (int cand = tid; cand < K * K; cand += nthr) {
+      const int ki = cand / K, kj = cand - ki * K;
+      const int pi = lo_i + step * ki, pj = lo_j + step * kj;
+      if (pi + bs < hi_i && pj + bs < hi_j) {   // inside the frame: never reads past it
+        int sad = 0;
+        for (int c = 0; c < C; ++c) {
+          const uint8_t* rp = ref + c * plane + static_cast<size_t>(pi) * W + pj;
+          const uint8_t* cp = cur + c * plane + static_cast<size_t>(ci) * W + cj;
+          for (int y = 0; y < bs; ++y)
+            for (int x = 0; x < bs; ++x)
+              sad += (static_cast<int>(__ldg(rp + static_cast<size_t>(y) * W + x)) -
+                      static_cast<int>(__ldg(cp + static_cast<size_t>(y) * W + x))) & 255;
+        }
+        key = min(key, (sad << sh) + cand + 1);
+      }
+    }
+    key = warp_min(key);
+    if (lane == 0) red_key[warp] = key;
+    __syncthreads();
+    if (tid == 0) {
+      int best = red_key[0];
+      for (int w = 1; w < nwarps; ++w) best = min(best, red_key[w]);
+      store_vector(o, best, false, sent, sh, K, step, lo_i, lo_j, ci, cj);
+    }
   }
-  return c_words + best_pad;
+}
+
+template <typename Kernel>
+cudaError_t allow_shared(Kernel kernel, size_t shmem) {
+  if (shmem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(shmem));
 }
 
 template <int BS>
@@ -326,12 +400,8 @@ cudaError_t launch_words(const uint8_t* curs, const uint8_t* refs, int32_t* mv_o
                          int threads, size_t shmem, cudaStream_t stream, int F, int C, int H,
                          int W, int reach, int step, int K, int win, int n_w, int copy_w, int sh,
                          int sent, int static_threshold) {
-  if (shmem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(sad_search_words_kernel<BS>,
-                                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                                 static_cast<int>(shmem));
-    if (err != cudaSuccess) return err;
-  }
+  const cudaError_t err = allow_shared(sad_search_words_kernel<BS>, shmem);
+  if (err != cudaSuccess) return err;
   sad_search_words_kernel<BS><<<grid, threads, shmem, stream>>>(
       curs, refs, mv_out, F, C, H, W, reach, step, K, win, n_w, copy_w, sh, sent,
       static_threshold);
@@ -340,44 +410,52 @@ cudaError_t launch_words(const uint8_t* curs, const uint8_t* refs, int32_t* mv_o
 
 }  // namespace
 
+// The form vcs_sad_search launches for this geometry (0 words, 1 bytes, 2
+// direct), its dynamic shared memory and threads per block; launches
+// nothing.
+extern "C" int vcs_sad_search_form(int C, int bs, int reach, int step, int aligned,
+                                   int* shmem_out, int* threads_out) {
+  const vcs_sad::SadPlan p = vcs_sad::sad_search_form(C, bs, reach, step, aligned != 0);
+  *shmem_out = static_cast<int>(p.shmem);
+  *threads_out = p.threads;
+  return p.form;
+}
+
 extern "C" int vcs_sad_search(const void* curs, const void* refs, void* mv_out,
                               int G, int F, int C, int H, int W, int bs,
                               int reach, int step, int static_threshold,
                               void* stream) {
-  const int K = (2 * reach + step - 1) / step;       // ceil(2*reach / step)
-  const int reach_span = step * (K - 1) > reach ? step * (K - 1) : reach;
-  const int win = reach_span + bs;
-  int sh = 0;
-  while ((1 << sh) <= K * K + 1) ++sh;               // (K*K+1).bit_length()
-  const int sent = (C * 255 * bs * bs + 1) << sh;
-  int threads = ((K * K + 31) / 32) * 32;
-  if (threads > kMaxThreads) threads = kMaxThreads;
+  const bool aligned = (reinterpret_cast<uintptr_t>(curs) | reinterpret_cast<uintptr_t>(refs)) % 4 == 0;
+  const vcs_sad::SadPlan p = vcs_sad::sad_search_form(C, bs, reach, step, aligned);
+  const int sent = (C * 255 * bs * bs + 1) << p.sh;
   const dim3 grid(W / bs, H / bs, G);
   const auto* cur_p = static_cast<const uint8_t*>(curs);
   const auto* ref_p = static_cast<const uint8_t*>(refs);
   auto* out_p = static_cast<int32_t*>(mv_out);
   const auto st = static_cast<cudaStream_t>(stream);
 
-  // The word kernel: 3 more bytes per row for the window's aligned start.
-  const int n_w = (win + 3 + 3) / 4;
-  const int copy_w = padded_copy_words(C * win * n_w, K, step, n_w);
-  const size_t shmem_words = 8u * C * bs * (bs / 4) + 16u * copy_w;
-  const bool aligned = (reinterpret_cast<uintptr_t>(curs) | reinterpret_cast<uintptr_t>(refs)) % 4 == 0;
-  if ((bs == 4 || bs == 8 || bs == 16) && aligned && shmem_words <= kMaxSharedBytes) {
-    cudaError_t err;
+  cudaError_t err = cudaSuccess;
+  if (p.form == vcs_sad::kFormWords) {
     if (bs == 4)
-      err = launch_words<4>(cur_p, ref_p, out_p, grid, threads, shmem_words, st, F, C, H, W, reach,
-                            step, K, win, n_w, copy_w, sh, sent, static_threshold);
+      err = launch_words<4>(cur_p, ref_p, out_p, grid, p.threads, p.shmem, st, F, C, H, W, reach,
+                            step, p.K, p.win, p.n_w, p.copy_w, p.sh, sent, static_threshold);
     else if (bs == 8)
-      err = launch_words<8>(cur_p, ref_p, out_p, grid, threads, shmem_words, st, F, C, H, W, reach,
-                            step, K, win, n_w, copy_w, sh, sent, static_threshold);
+      err = launch_words<8>(cur_p, ref_p, out_p, grid, p.threads, p.shmem, st, F, C, H, W, reach,
+                            step, p.K, p.win, p.n_w, p.copy_w, p.sh, sent, static_threshold);
     else
-      err = launch_words<16>(cur_p, ref_p, out_p, grid, threads, shmem_words, st, F, C, H, W, reach,
-                             step, K, win, n_w, copy_w, sh, sent, static_threshold);
+      err = launch_words<16>(cur_p, ref_p, out_p, grid, p.threads, p.shmem, st, F, C, H, W, reach,
+                             step, p.K, p.win, p.n_w, p.copy_w, p.sh, sent, static_threshold);
     return static_cast<int>(err);
   }
-  const size_t shmem = sizeof(int) * C * bs * bs + static_cast<size_t>(C) * win * win;
-  sad_search_bytes_kernel<<<grid, threads, shmem, st>>>(
-      cur_p, ref_p, out_p, F, C, H, W, bs, reach, step, K, win, sh, sent, static_threshold);
+  if (p.form == vcs_sad::kFormBytes) {
+    err = allow_shared(sad_search_bytes_kernel, p.shmem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    sad_search_bytes_kernel<<<grid, p.threads, p.shmem, st>>>(
+        cur_p, ref_p, out_p, F, C, H, W, bs, reach, step, p.K, p.win, p.sh, sent,
+        static_threshold);
+    return static_cast<int>(cudaGetLastError());
+  }
+  sad_search_direct_kernel<<<grid, p.threads, 0, st>>>(
+      cur_p, ref_p, out_p, F, C, H, W, bs, reach, step, p.K, p.sh, sent, static_threshold);
   return static_cast<int>(cudaGetLastError());
 }

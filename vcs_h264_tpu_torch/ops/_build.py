@@ -35,11 +35,16 @@ NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "--fmad=false", "-Xcompiler",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-# C entry point -> argument types; every one returns its cudaError_t.
+_IP = ctypes.POINTER(ctypes.c_int)
+# C entry point -> argument types; every one returns its cudaError_t but
+# vcs_sad_search_form, which returns a form.
 SIGNATURES = {
     # curs, refs, mv_out, G, F, C, H, W, bs, reach, step, static_threshold,
     # stream
     "vcs_sad_search": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),
+    # C, bs, reach, step, aligned, shmem_out, threads_out -> the form
+    # vcs_sad_search takes (motion_cuda.SAD_FORMS); launches nothing
+    "vcs_sad_search_form": (_I, _I, _I, _I, _I, _IP, _IP),
     # mv, refs, curs, tables (in HOST memory: they become the kernel's
     # parameter), coeffs_out, G, F, H, W, stream
     "vcs_fused_p_encode": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),

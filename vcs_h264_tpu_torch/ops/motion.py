@@ -195,8 +195,10 @@ def motion_search_gops(curs: torch.Tensor, refs: torch.Tensor, *, bs: int = 8,
     """GOP-batched search: curs [G, F, C, H, W] vs refs [G, C, H, W]
     (uint8-valued) -> [G, F, nbh, nbw, 2] int32 (dx, dy).
 
-    backend "auto": the K2 kernel on a CUDA tensor, the plain version on a
-    CPU tensor. backend "plain": the plain version on either."""
+    backend "auto": the K2 kernel on a CUDA tensor, at every geometry that
+    `make_plan` and `key_packing` admit (`motion_cuda.sad_search_form`
+    picks its form), the plain version on a CPU tensor. backend "plain":
+    the plain version on either."""
     check_backend(backend)
     if curs.ndim != 5 or refs.ndim != 4 or curs.shape[0] != refs.shape[0] \
             or curs.shape[2:] != refs.shape[1:]:

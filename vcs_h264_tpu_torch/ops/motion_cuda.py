@@ -10,6 +10,10 @@ only and raise on anything else.
 
 from __future__ import annotations
 
+import ctypes
+import functools
+
+import numpy as np
 import torch
 
 from vcs_h264_tpu_torch.ops import _build
@@ -18,14 +22,78 @@ from vcs_h264_tpu_torch.ops.motion import key_packing, make_plan
 # Launches of each kernel of this module, counted where the kernel launches.
 LAUNCHES = {"sad_search": 0, "compensate": 0}
 
-_SHMEM_LIMIT = 48 * 1024      # static launch limit without opt-in
+# The forms of K2 (`csrc/motion_sad.cu`), in the numbering of its C entry
+# point vcs_sad_search_form, and the launches of each.
+SAD_FORMS = ("words", "bytes", "direct")
+FORMS = dict.fromkeys(SAD_FORMS, 0)
+_MAX_THREADS = 1024
+_MAX_SHARED = 232448          # dynamic shared memory a block may opt into
+_INT32 = 2**31
+
+
+def padded_copy_words(c_words: int, k: int, step: int, n_w: int) -> int:
+    """The word kernel's stride between its four shifted window copies: the
+    least padding of c_words (0 to 31 words) for which the candidates of
+    each warp fall on the fewest common banks, as the C source picks it."""
+    cand = np.arange(k * k)
+    col = step * (cand % k)
+    base = step * (cand // k) * n_w + (col >> 2)
+    warp = cand // 32
+    costs = []
+    for pad in range(32):
+        bank = ((col & 3) * (c_words + pad) + base) & 31
+        hits = np.zeros((warp[-1] + 1, 32), dtype=np.int64)
+        np.add.at(hits, (warp, bank), 1)
+        costs.append(int(hits.max(axis=1).sum()))
+    return c_words + int(np.argmin(costs))
+
+
+@functools.lru_cache(maxsize=None)
+def sad_search_form(c: int, bs: int, reach: int, step: int,
+                    aligned: bool) -> tuple:
+    """Which kernel K2 launches for this geometry, by shape alone ->
+    (form, dynamic shared bytes, threads per block); what the C entry
+    point vcs_sad_search_form reports.
+
+    "words" takes block sizes 4, 8 and 16 with both operands on a 4-byte
+    boundary where the window's four shifted word copies fit a block's
+    shared memory; "bytes" any block size and alignment where the window
+    and the current block fit as bytes; "direct" stages nothing and takes
+    every other geometry."""
+    k = -(-2 * reach // step)
+    win = max(step * (k - 1), reach) + bs
+    threads = min(-(-k * k // 32) * 32, _MAX_THREADS)
+    n_w = (win + 6) // 4
+    block_words = 8 * c * bs * (bs // 4)
+    if bs in (4, 8, 16) and aligned \
+            and block_words + 16 * c * win * n_w <= _MAX_SHARED:
+        shmem = block_words + 16 * padded_copy_words(c * win * n_w, k, step,
+                                                     n_w)
+        if shmem <= _MAX_SHARED:
+            return "words", shmem, threads
+    shmem = c * bs * bs + c * win * win
+    if shmem <= _MAX_SHARED:
+        return "bytes", shmem, threads
+    return "direct", 0, threads
+
+
+def sad_search_form_c(c: int, bs: int, reach: int, step: int,
+                      aligned: bool) -> tuple:
+    """`sad_search_form` as the built library answers it."""
+    shmem, threads = ctypes.c_int(), ctypes.c_int()
+    form = _build.load_library().vcs_sad_search_form(
+        c, bs, reach, step, int(aligned), ctypes.byref(shmem),
+        ctypes.byref(threads))
+    return SAD_FORMS[form], shmem.value, threads.value
 
 
 def sad_search(curs: torch.Tensor, refs: torch.Tensor, *, bs: int = 8,
                reach: int = 16, step: int = 3,
                static_threshold: int = 2000) -> torch.Tensor:
     """curs uint8 [G, F, C, H, W], refs uint8 [G, C, H, W], both contiguous
-    on one CUDA device -> motion vectors int32 [G, F, nbh, nbw, 2] (dx, dy)."""
+    on one CUDA device -> motion vectors int32 [G, F, nbh, nbw, 2] (dx, dy).
+    Any geometry the search admits (`make_plan`, `key_packing`), in the
+    form `sad_search_form` picks."""
     for name, t, nd in (("curs", curs, 5), ("refs", refs, 4)):
         if t.device.type != "cuda":
             raise ValueError(f"sad_search: {name} must be a CUDA tensor, "
@@ -45,10 +113,13 @@ def sad_search(curs: torch.Tensor, refs: torch.Tensor, *, bs: int = 8,
         raise ValueError(f"sad_search: grid too large for G={g}, H={h}")
     plan = make_plan(h, w, bs, reach, step)
     key_packing(plan, c)                         # raises on int32 overflow
-    win = max(step * (plan.k - 1), reach) + bs
-    if 4 * c * bs * bs + c * win * win > _SHMEM_LIMIT or plan.k * plan.k > 1024:
-        raise ValueError(f"sad_search: reach={reach}, step={step}, bs={bs} "
-                         "exceed the kernel's shared memory or thread limit")
+    if plan.k < 1:
+        raise ValueError(f"sad_search: reach={reach} gives no candidates")
+    if 2 * (reach + step) + bs >= _INT32:
+        raise ValueError(f"sad_search: reach={reach}, step={step} exceed "
+                         "the kernels' int32 positions")
+    aligned = (curs.data_ptr() | refs.data_ptr()) % 4 == 0
+    form = sad_search_form(c, bs, reach, step, aligned)[0]
     lib = _build.load_library()
     out = torch.empty((g, f, plan.nbh, plan.nbw, 2), dtype=torch.int32,
                       device=curs.device)
@@ -59,6 +130,7 @@ def sad_search(curs: torch.Tensor, refs: torch.Tensor, *, bs: int = 8,
                                  step, static_threshold, stream)
     _build.check(err, "sad_search")
     LAUNCHES["sad_search"] += 1
+    FORMS[form] += 1
     return out
 
 
