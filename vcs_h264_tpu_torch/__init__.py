@@ -37,7 +37,8 @@ Layout:
               built with g++, and its Python mirror), video (cv2 reader and
               writer, imported inside)
   utils/      metrics (PSNR, SSIM, sparsity, JSONL logger), profiling
-              (trace ranges, device_trace, StageTimer)
+              (the program's spans and counters, recorded while a profiler
+              records; device_trace, StageTimer)
   parallel/   distributed (the process group on a store, the barrier, GOP
               spans, the merge of checkpoint directories, the encode)
   cli.py      the command-line driver: cores on frames and streams, and a

@@ -24,6 +24,14 @@ The writer re-encodes lossless-intra I-frames with the plain
 re-encodes them. Streams come back in host memory, in the dtypes of
 `EncodedVideo.load_npz`.
 
+While a profiler records, `save_vcs` and `load_vcs` record the program's
+spans (`utils/profiling.py`): the roots `save_vcs` (count `frames`) and
+`load_vcs`, the stream's copy to host memory `save_vcs.pull`, every
+range coder call `vcs.rc_encode` / `vcs.rc_decode` on whatever thread runs
+it, every zigzag scan `vcs.zigzag`, and the loader's phase 3
+`load_vcs.intra`; copies to host memory count `d2h_copies` and `d2h_bytes`
+on the span open around them.
+
 Versions 3 to 11 load; the writer emits 11. A version-3 stream carries
 rounded coefficients of the wrapped (mod-256) residual and loads with
 `signed_residual=False`.
@@ -52,6 +60,8 @@ from vcs_h264_tpu_torch.models.gop import (EncodedGOP, EncodedGOP420,
 from vcs_h264_tpu_torch.ops import _build
 from vcs_h264_tpu_torch.ops.motion import check_backend
 from vcs_h264_tpu_torch.ops.quant import zigzag_order_np
+from vcs_h264_tpu_torch.utils.profiling import (add_counts, carry,
+                                                trace_annotation, traced)
 
 _MAGIC = b"VCSH264T"
 # v4 added per-GOP B-frame sections; v5 adds intra_qstep in the header and a
@@ -822,6 +832,7 @@ def _py_rc_decode_modes2d(blob: bytes, n: int, rows: int, cols: int,
     return out
 
 
+@traced("vcs.rc_encode")
 def rc_encode(data: np.ndarray) -> bytes:
     """int16 array -> range-coded bytes (v8 streams)."""
     data = np.ascontiguousarray(data, dtype=np.int16).ravel()
@@ -838,6 +849,7 @@ def rc_encode(data: np.ndarray) -> bytes:
     return out[:nbytes].tobytes()
 
 
+@traced("vcs.rc_decode")
 def rc_decode(blob: bytes, n: int) -> np.ndarray:
     """range-coded bytes -> int16 array of length n."""
     lib = load_native()
@@ -853,6 +865,7 @@ def rc_decode(blob: bytes, n: int) -> np.ndarray:
     return out
 
 
+@traced("vcs.rc_encode")
 def rc_encode_u8(data: np.ndarray, nsym: int) -> bytes:
     """uint8 symbol array (values < nsym) -> range-coded bytes (mode maps:
     prev-symbol-conditioned truncated-unary contexts)."""
@@ -870,6 +883,7 @@ def rc_encode_u8(data: np.ndarray, nsym: int) -> bytes:
     return out[:nbytes].tobytes()
 
 
+@traced("vcs.rc_decode")
 def rc_decode_u8(blob: bytes, n: int, nsym: int) -> np.ndarray:
     lib = load_native()
     if lib is None or not hasattr(lib, "vcs_rc_decode_u8"):
@@ -884,6 +898,7 @@ def rc_decode_u8(blob: bytes, n: int, nsym: int) -> np.ndarray:
     return out
 
 
+@traced("vcs.rc_encode")
 def rc_encode_i16_b(data: np.ndarray, block_len: int) -> bytes:
     """int16 zigzag-block stream -> range-coded bytes with zigzag-band-
     conditioned run/sign/level contexts (v9 coefficient streams)."""
@@ -901,6 +916,7 @@ def rc_encode_i16_b(data: np.ndarray, block_len: int) -> bytes:
     return out[:nbytes].tobytes()
 
 
+@traced("vcs.rc_decode")
 def rc_decode_i16_b(blob: bytes, n: int, block_len: int) -> np.ndarray:
     lib = load_native()
     if lib is None or not hasattr(lib, "vcs_rc_decode_i16_b"):
@@ -915,6 +931,7 @@ def rc_decode_i16_b(blob: bytes, n: int, block_len: int) -> np.ndarray:
     return out
 
 
+@traced("vcs.rc_encode")
 def rc_encode_i16_cbf(data: np.ndarray, block_len: int) -> bytes:
     """int16 zigzag-block stream -> range-coded bytes with per-block CBF +
     in-block run/level/EOB tokens (v10 coefficient streams; measured -37%
@@ -933,6 +950,7 @@ def rc_encode_i16_cbf(data: np.ndarray, block_len: int) -> bytes:
     return out[:nbytes].tobytes()
 
 
+@traced("vcs.rc_decode")
 def rc_decode_i16_cbf(blob: bytes, n: int, block_len: int) -> np.ndarray:
     lib = load_native()
     if lib is None or not hasattr(lib, "vcs_rc_decode_i16_cbf"):
@@ -947,6 +965,7 @@ def rc_decode_i16_cbf(blob: bytes, n: int, block_len: int) -> np.ndarray:
     return out
 
 
+@traced("vcs.rc_encode")
 def rc_encode_mv(data: np.ndarray) -> bytes:
     """Interleaved (dx, dy) int16 stream -> range-coded bytes (v9: per-
     component zero-flag/sign/magnitude contexts)."""
@@ -964,6 +983,7 @@ def rc_encode_mv(data: np.ndarray) -> bytes:
     return out[:nbytes].tobytes()
 
 
+@traced("vcs.rc_decode")
 def rc_decode_mv(blob: bytes, n: int) -> np.ndarray:
     lib = load_native()
     if lib is None or not hasattr(lib, "vcs_rc_decode_mv"):
@@ -978,6 +998,7 @@ def rc_decode_mv(blob: bytes, n: int) -> np.ndarray:
     return out
 
 
+@traced("vcs.rc_encode")
 def rc_encode_i16_sig(data: np.ndarray, nf: int, nc: int, nbh: int,
                       nbw: int, block_len: int) -> bytes:
     """int16 zigzag-block stream [..frames x channels x nbh x nbw blocks..]
@@ -999,6 +1020,7 @@ def rc_encode_i16_sig(data: np.ndarray, nf: int, nc: int, nbh: int,
     return out[:nbytes].tobytes()
 
 
+@traced("vcs.rc_decode")
 def rc_decode_i16_sig(blob: bytes, n: int, nf: int, nc: int, nbh: int,
                       nbw: int, block_len: int) -> np.ndarray:
     lib = load_native()
@@ -1015,6 +1037,7 @@ def rc_decode_i16_sig(blob: bytes, n: int, nf: int, nc: int, nbh: int,
     return out
 
 
+@traced("vcs.rc_encode")
 def rc_encode_modes2d(data: np.ndarray, rows: int, cols: int,
                       nsym: int) -> bytes:
     """uint8 mode planes [..., rows, cols] -> range-coded bytes with
@@ -1035,6 +1058,7 @@ def rc_encode_modes2d(data: np.ndarray, rows: int, cols: int,
     return out[:nbytes].tobytes()
 
 
+@traced("vcs.rc_decode")
 def rc_decode_modes2d(blob: bytes, n: int, rows: int, cols: int,
                       nsym: int) -> np.ndarray:
     lib = load_native()
@@ -1086,6 +1110,7 @@ def rle_decode(blob: bytes, n: int) -> np.ndarray:
 # .vcs container
 
 
+@traced("vcs.zigzag")
 def _zigzag_plane(coeffs: np.ndarray, bs: int) -> np.ndarray:
     """[..., H, W] int16 -> flat zigzag-per-block int16."""
     *lead, h, w = coeffs.shape
@@ -1095,6 +1120,7 @@ def _zigzag_plane(coeffs: np.ndarray, bs: int) -> np.ndarray:
     return x[..., order].ravel()
 
 
+@traced("vcs.zigzag")
 def _unzigzag_plane(flat: np.ndarray, shape, bs: int) -> np.ndarray:
     *lead, h, w = shape
     order = zigzag_order_np(bs)
@@ -1246,7 +1272,7 @@ def _parallel_gop_builds(recs, build) -> list:
         return [build(r) for r in recs]
     workers = min(8, os.cpu_count() or 1, len(recs))
     with ThreadPoolExecutor(max_workers=workers) as ex:
-        return list(ex.map(build, recs))
+        return list(ex.map(carry(build), recs))
 
 
 def _parallel_gop_sections(gops, write_one) -> list:
@@ -1267,13 +1293,23 @@ def _parallel_gop_sections(gops, write_one) -> list:
         return [one(g) for g in gops]
     workers = min(8, os.cpu_count() or 1, len(gops))
     with ThreadPoolExecutor(max_workers=workers) as ex:
-        return list(ex.map(one, gops))
+        return list(ex.map(carry(one), gops))
+
+
+def _to_host(t: torch.Tensor) -> np.ndarray:
+    """A tensor brought to host memory, counted (`d2h_copies`, `d2h_bytes`)
+    on the span open around the call. It is counted on any device, so that
+    a run on the CPU, which copies nothing, holds the count a card's run
+    makes; an empty tensor, which a card does not copy, is not counted."""
+    if t.numel():
+        add_counts(d2h_copies=1, d2h_bytes=t.nbytes)
+    return t.detach().cpu().numpy()
 
 
 def _host_numpy(gop):
     """A GOP of tensors -> the same record holding numpy arrays, brought to
     host memory once (an encoder leaves its GOPs on the device)."""
-    return gop._map(lambda v: v.detach().cpu().numpy())
+    return gop._map(_to_host)
 
 
 def _lossless_sections(planes, per_gop: int, device):
@@ -1285,7 +1321,7 @@ def _lossless_sections(planes, per_gop: int, device):
     for s in range(0, len(planes), step):
         intra = intra_codec.encode_intra_frame(torch.from_numpy(
             np.ascontiguousarray(planes[s:s + step])).to(device))
-        parts.append([x.cpu().numpy() for x in intra])
+        parts.append([_to_host(x) for x in intra])
     return tuple(np.concatenate(x) for x in zip(*parts))
 
 
@@ -1395,7 +1431,7 @@ def _intra_decode_420(gops, recs, cfg: CodecConfig, device, backend) -> None:
                     for k in EncodedGOP420.PAYLOAD))
             out = pipeline420.decode_intra_420(batch, cfg.intra_qstep,
                                                backend)
-            i_y, i_c = out.i_y.cpu().numpy(), out.i_c.cpu().numpy()
+            i_y, i_c = _to_host(out.i_y), _to_host(out.i_c)
         else:
             i_y = _decode_lossless(
                 [g.iless[0] for g in members], device, backend)[:, 0]
@@ -1413,7 +1449,7 @@ def _decode_lossless(sections, device, backend) -> np.ndarray:
                        for x in zip(*sections))
     out = intra_codec.decode_intra_frame(
         intra_codec.IntraFrame(res, modes, esc), backend)
-    return out.to(torch.uint8).cpu().numpy().reshape(b, c, h, w)
+    return _to_host(out.to(torch.uint8)).reshape(b, c, h, w)
 
 
 def _load_vcs_420(fh, cfg: CodecConfig, n_gops: int, bs: int,
@@ -1524,10 +1560,12 @@ def _load_vcs_420(fh, cfg: CodecConfig, n_gops: int, bs: int,
 
     gops = _parallel_gop_builds(recs, build)
     # phase 3: the I planes of all GOPs, batched per plane shape
-    _intra_decode_420(gops, recs, cfg, device, backend)
+    with trace_annotation("load_vcs.intra"):
+        _intra_decode_420(gops, recs, cfg, device, backend)
     return gops
 
 
+@traced("save_vcs")
 def save_vcs(video: EncodedVideo, path: str, *, device="cuda") -> None:
     """Serialize an EncodedVideo (quant_mode='rounded' for real compression).
 
@@ -1551,8 +1589,10 @@ def save_vcs(video: EncodedVideo, path: str, *, device="cuda") -> None:
             "signed-RCT streams. Re-encode with a default production "
             "config to write a new container.")
     device = resolve_device(device)
+    add_counts(frames=video.num_frames)
     bs = cfg.block_size
-    gops = [_host_numpy(g) for g in video.gops]
+    with trace_annotation("save_vcs.pull"):
+        gops = [_host_numpy(g) for g in video.gops]
     with open(path, "wb") as fh:
         fh.write(_MAGIC)
         mode = (2 if cfg.with_dct else (1 if cfg.with_residual else 0))
@@ -1673,8 +1713,8 @@ def _intra_decode_fullres(gops, recs, intra_qstep: int, device,
             pay = intra_codec.IntraFrameLossy(*(
                 torch.from_numpy(np.stack([getattr(g, k) for g in members]))
                 .to(device) for k in EncodedGOP.PAYLOAD))
-            out = intra_codec.decode_intra_frames_lossy_batch(
-                pay, intra_qstep, backend).cpu().numpy()
+            out = _to_host(intra_codec.decode_intra_frames_lossy_batch(
+                pay, intra_qstep, backend))
         else:
             out = _decode_lossless([g.iless for g in members], device,
                                    backend)
@@ -1692,6 +1732,7 @@ def _tensors(gop):
     return gop._map(_tensor)
 
 
+@traced("load_vcs")
 def load_vcs(path: str, *, device="cuda",
              backend: str = "auto") -> EncodedVideo:
     """Load a `.vcs` file of version 3 to 11, written by either package.
@@ -1834,7 +1875,8 @@ def load_vcs(path: str, *, device="cuda",
 
         gops = _parallel_gop_builds(recs, build)
     # phase 3: the I-frames of all GOPs, batched per shape
-    _intra_decode_fullres(gops, recs, intra_qstep, device, backend)
+    with trace_annotation("load_vcs.intra"):
+        _intra_decode_fullres(gops, recs, intra_qstep, device, backend)
     return EncodedVideo(config=cfg, height=h, width=w, fps=fps,
                         num_frames=num_frames,
                         gops=[_tensors(g) for g in gops])

@@ -32,6 +32,7 @@ from vcs_h264_tpu_torch.models.encoder import resolve_device
 from vcs_h264_tpu_torch.models.gop import EncodedVideo
 from vcs_h264_tpu_torch.models.host_path import Download, HostPath
 from vcs_h264_tpu_torch.ops.motion import check_backend
+from vcs_h264_tpu_torch.utils.profiling import trace_annotation
 
 
 class Decoder:
@@ -129,6 +130,10 @@ class Decoder:
     @staticmethod
     def _frames(download: Download) -> Iterator[np.ndarray]:
         """The frames of a finished download, each a copy: the buffer goes
-        back to the allocator."""
-        for f in download.wait().numpy():
+        back to the allocator. The host's wait for the device's decode and
+        the download is the span `decode.wait`."""
+        with trace_annotation("decode.wait", d2h_copies=1,
+                              d2h_bytes=download.nbytes):
+            host = download.wait()
+        for f in host.numpy():
             yield f.copy()

@@ -28,12 +28,14 @@ import torch
 
 
 class Download:
-    """A copy to host memory, complete once `wait()` returns."""
+    """A copy to host memory, complete once `wait()` returns; `nbytes`: the
+    bytes it brings."""
 
     def __init__(self, host: torch.Tensor,
                  done: Optional[torch.cuda.Event]):
         self._host = host
         self._done = done
+        self.nbytes = host.nbytes
 
     def wait(self) -> torch.Tensor:
         if self._done is not None:
