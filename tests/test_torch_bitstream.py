@@ -184,6 +184,119 @@ def test_coefficient_planes_match_jax(version, rng):
     np.testing.assert_array_equal(got, res)
 
 
+# plane stacks of the v11 coder, in blocks of bs: [H, W], [C, H, W],
+# [NF, C, H, W] and luma [NP, 1, H, W]
+RASTER_LAYOUTS = {
+    "HW": lambda bs: (2 * bs, 3 * bs),
+    "CHW": lambda bs: (3, bs, 2 * bs),
+    "NFCHW": lambda bs: (2, 3, 2 * bs, bs),
+    "luma": lambda bs: (3, 1, 2 * bs, 2 * bs),
+}
+
+
+def _planes(kind, shape, rng):
+    if kind == "zeros":
+        return np.zeros(shape, np.int16)
+    if kind == "extremes":
+        d = rng.choice(np.array([-32767, 32767, -1, 1, 0], np.int16), shape)
+        d[rng.random(shape) < 0.5] = 0
+        return d.astype(np.int16)
+    d = rng.integers(-300, 301, shape).astype(np.int16)
+    d[rng.random(shape) < 0.9] = 0
+    return d
+
+
+@pytest.mark.parametrize("route", ["native", "no native"])
+@pytest.mark.parametrize("kind", ["sparse", "extremes", "zeros"])
+@pytest.mark.parametrize("layout", RASTER_LAYOUTS)
+@pytest.mark.parametrize("bs", [4, 8, 16])
+def test_raster_sig_coder(bs, layout, kind, route, rng, monkeypatch):
+    """The v11 coder on raster planes: the bytes of the zigzag-stream coder
+    on the scanned planes, of its Python mirror and of the JAX package's v11
+    coefficient coder; decoded back to the planes as int16. Without the
+    native library the wrappers take the scan and the mirror, to the same
+    bytes."""
+    shape = RASTER_LAYOUTS[layout](bs)
+    x = _planes(kind, shape, rng)
+    nf, nc = bits._sig_geom(shape)
+    geom = (nf, nc, shape[-2] // bs, shape[-1] // bs, bs * bs)
+    scanned = bits._zigzag_plane(x, bs)
+    want = bits.rc_encode_i16_sig(scanned, *geom)
+    assert want == bits._py_rc_encode_i16_sig(scanned, *geom)
+    assert want == jbits._coeff_codecs(11, bs)[0](x)
+    if route == "no native":
+        monkeypatch.setattr(bits, "load_native", lambda: None)
+    blob = bits.rc_encode_i16_sig_raster(x, bs)
+    assert blob == want
+    got = bits.rc_decode_i16_sig_raster(blob, shape, bs)
+    assert got.dtype == np.int16 and got.shape == shape
+    assert got.flags.c_contiguous
+    np.testing.assert_array_equal(got, x)
+
+
+def _native_raster(name, *args):
+    """A raster entry point of the native library called directly."""
+    import ctypes
+    ptr = lambda a, t: a.ctypes.data_as(ctypes.POINTER(t))  # noqa: E731
+    lib = bits.load_native()
+    data, n, nf, nc, h, w, bs, order = args
+    buf = np.zeros(max(8 * n + 16, 1), np.uint8)
+    if name == "encode":
+        return lib.vcs_rc_encode_i16_sig_raster(
+            ptr(data, ctypes.c_int16), n, nf, nc, h, w, bs,
+            ptr(order, ctypes.c_int32), ptr(buf, ctypes.c_uint8), len(buf))
+    out = np.zeros(max(n, 1), np.int16)
+    return lib.vcs_rc_decode_i16_sig_raster(
+        ptr(buf, ctypes.c_uint8), len(buf), ptr(out, ctypes.c_int16), n,
+        nf, nc, h, w, bs, ptr(order, ctypes.c_int32))
+
+
+# case -> (H, W, bs, the order table's change) of a geometry that does not
+# fit, or the bytes cut off a valid blob
+RASTER_MISFITS = {
+    "rows": (20, 16, 8, None), "cols": (16, 12, 8, None),
+    "bs 1": (4, 4, 1, None), "bs 128": (128, 128, 128, None),
+    "order out of range": (16, 16, 8, 64), "order negative": (16, 16, 8, -1),
+}
+RASTER_CUTS = {"last byte off": lambda b: b[:-1],
+               "two bytes off": lambda b: b[:-2],
+               "half": lambda b: b[:len(b) // 2],
+               "first 5 bytes": lambda b: b[:5], "empty": lambda b: b""}
+
+
+@pytest.mark.parametrize("case", [*RASTER_MISFITS, *RASTER_CUTS])
+def test_raster_sig_coder_refuses(case, rng, monkeypatch):
+    """Planes that bs x bs blocks do not tile and order tables that do not
+    index a block: the wrappers raise ValueError and the native entry points
+    return -2. A blob cut short raises ValueError in the native decoder and
+    the mirror: the encoder's flush leaves every byte its decoder reads."""
+    if case in RASTER_MISFITS:
+        h, w, bs, bad = RASTER_MISFITS[case]
+        x = np.ones((2, h, w), np.int16)
+        order = np.arange(bs * bs, dtype=np.int32)
+        if bad is None:
+            with pytest.raises(ValueError):
+                bits.rc_encode_i16_sig_raster(x, bs)
+            with pytest.raises(ValueError):
+                bits.rc_decode_i16_sig_raster(b"\0" * 16, x.shape, bs)
+        else:
+            order[-1] = bad
+        for name in ("encode", "decode"):
+            assert _native_raster(name, x, x.size, 1, 2, h, w, bs,
+                                  order) == -2
+        return
+    shape = (2, 3, 16, 24)
+    x = _planes("sparse", shape, rng)
+    blob = bits.rc_encode_i16_sig_raster(x, 8)
+    short = RASTER_CUTS[case](blob)
+    assert len(short) < len(blob)
+    with pytest.raises(ValueError):
+        bits.rc_decode_i16_sig_raster(short, shape, 8)
+    monkeypatch.setattr(bits, "load_native", lambda: None)
+    with pytest.raises(ValueError):
+        bits.rc_decode_i16_sig_raster(short, shape, 8)
+
+
 @pytest.mark.parametrize("bs", [4, 8, 16])
 def test_zigzag_and_quantize_match_jax(bs, rng):
     np.testing.assert_array_equal(quant.zigzag_order_np(bs),

@@ -4,8 +4,10 @@
 (the 1080p cell's): nothing is recorded and no profiler range entered
 without a profiler; under one every span is recorded inside its root, on
 the calling thread and the container's pool alike, with the counts the
-stream defines; the bytes and frames are the same either way; the
-benchmark's eight readers of the recording give per-frame values, and None
+stream defines; the v11 coefficient coder scans the planes inside the
+native coder, so only a legacy load records `vcs.zigzag`; the bytes and
+frames are the same either way; the benchmark's eight readers of the
+recording give per-frame values, and None
 without a `save_vcs` root, and the two readers of the copies None unless
 the trace holds as many copies."""
 
@@ -34,8 +36,11 @@ CPU = [torch.profiler.ProfilerActivity.CPU]
 ROOTS = ("save_vcs", "load_vcs")
 # span -> its root; decode.wait has none
 TABLE = {"save_vcs.pull": "save_vcs", "vcs.rc_encode": "save_vcs",
-         "vcs.zigzag": None, "vcs.rc_decode": "load_vcs",
-         "load_vcs.intra": "load_vcs", "decode.wait": None}
+         "vcs.rc_decode": "load_vcs", "load_vcs.intra": "load_vcs",
+         "decode.wait": None}
+# the GOP fields that hold coefficient planes, each one coded array
+COEFF_FIELDS = ("i_qcoef", "residuals", "b_residuals", "iq_y", "iq_c",
+                "res_y", "res_c", "bres_y", "bres_c")
 STREAMS = {
     "444_ippp": (dict(intra_qstep=24), 4),
     "420_ibpbpbp": (dict(chroma_420=True, intra_qstep=24,
@@ -157,6 +162,36 @@ def test_every_span_name_reaches_the_profiler(stream, n_gops, tmp_path):
                 while up is not None and up.name not in ROOTS:
                     up = up.cpu_parent
                 assert up is not None and up.name == TABLE[e.name]
+
+
+@pytest.mark.parametrize("stream", STREAMS)
+@pytest.mark.parametrize("n_gops", [1, 2], ids=["one gop", "pool"])
+def test_v11_scans_inside_the_coder(stream, n_gops, tmp_path):
+    """A v11 round trip records no `vcs.zigzag`: each coefficient array is
+    scanned inside the native coder, whose `vcs.rc_encode` on the save and
+    `vcs.rc_decode` on the load count `zigzag_fused` once."""
+    with torch.profiler.profile(activities=CPU):
+        video, _, _ = _round_trip(stream, tmp_path, n_gops)
+    spans = profiling.recorded()
+    assert "vcs.zigzag" not in {s.name for s in spans}
+    arrays = sum(getattr(g, f, None) is not None
+                 for g in video.gops for f in COEFF_FIELDS)
+    assert arrays == n_gops * (2 if "444" in stream else 6)
+    for name in ("vcs.rc_encode", "vcs.rc_decode"):
+        fused = [s.counts["zigzag_fused"] for s in spans
+                 if s.name == name and "zigzag_fused" in s.counts]
+        assert fused == [1] * arrays, name
+
+
+def test_legacy_load_scans_with_numpy():
+    """A v10 file's coefficients still go through numpy's inverse scan,
+    which `vcs.zigzag` times; no span counts `zigzag_fused`."""
+    with torch.profiler.profile(activities=CPU):
+        load_vcs(str(REPO / "tests" / "fixtures" / "legacy_v10.vcs"),
+                 device="cpu")
+    spans = profiling.recorded()
+    assert [s.name for s in spans].count("vcs.zigzag") > 0
+    assert not any("zigzag_fused" in s.counts for s in spans)
 
 
 @pytest.mark.parametrize("stream", STREAMS)

@@ -230,7 +230,13 @@ struct Decoder {
     uint32_t code = 0;
     bool error = false;
 
-    uint8_t next() { return pos < nbytes ? buf[pos++] : 0; }
+    int64_t past_end = 0;            // reads beyond the blob, as zeros
+
+    uint8_t next() {
+        if (pos < nbytes) return buf[pos++];
+        ++past_end;
+        return 0;
+    }
 
     void init() {
         next();                          // leading cache byte (always 0)
@@ -637,10 +643,24 @@ int64_t vcs_rc_decode_u8(const uint8_t* in, int64_t nbytes,
 // Stream geometry: frames x channels x nbh x nbw blocks of block_len
 // zigzag coefficients, raster order. Bit-identical Python mirror:
 // io/bitstream.py _py_rc_encode_i16_sig / _py_rc_encode_modes2d.
+//
+// Two pairs of entry points code the same bytes. vcs_rc_*_i16_sig take the
+// coefficients already in that stream order. vcs_rc_*_i16_sig_raster take
+// the planes themselves, an int16 [nf, nc, H, W] stack of bs x bs blocks,
+// and the block's scan order as a table of bs*bs int32 raster indices
+// (io/bitstream.py passes ops/quant.py zigzag_order_np(bs)): the encoder
+// skips a block of zeros and gathers any other through the table into a
+// stack buffer, and the decoder stores each significant level straight at
+// its raster place, so no scanned copy of the planes exists. Both pairs run one block body
+// (SigCoder below) and one block order; the raster encoder's bytes equal
+// vcs_rc_encode_i16_sig's on the scanned planes. A decoder that reads past
+// the end of its blob, which the encoder's flush never makes it do, fails:
+// the blob was cut short.
 
 namespace v11 {
 
 constexpr int kPosBuckets = 17;      // min(pos, 16)
+constexpr int kMaxBlockLen = 4096;
 
 inline int posb(int p) { return p < 16 ? p : 16; }
 
@@ -660,54 +680,62 @@ struct SigCtx {
     }
 };
 
-}  // namespace v11
+// The coder's state over one stream: contexts, the CBFs of every block so
+// far and the significance of the previous frame's co-located blocks.
+struct SigCoder {
+    int64_t bpp, bpf, nblk;           // blocks per plane, frame, stream
+    int nbw, bl;
+    SigCtx cx;
+    uint8_t* sig_prev;
+    uint8_t* sig_cur;
+    uint8_t* cbfs;
 
-extern "C" {
+    SigCoder(int32_t nf, int32_t nc, int32_t nbh, int32_t nbw_,
+             int32_t block_len)
+        : bpp((int64_t)nbh * nbw_), bpf(bpp * nc), nblk(bpf * nf),
+          nbw(nbw_), bl(block_len),
+          sig_prev(new uint8_t[bpf * block_len]()),
+          sig_cur(new uint8_t[bpf * block_len]()),
+          cbfs(new uint8_t[nblk]()) {}
+    SigCoder(const SigCoder&) = delete;
+    SigCoder& operator=(const SigCoder&) = delete;
+    ~SigCoder() { delete[] sig_prev; delete[] sig_cur; delete[] cbfs; }
 
-int64_t vcs_rc_encode_i16_sig(const int16_t* data, int64_t n,
-                              int32_t nf, int32_t nc, int32_t nbh,
-                              int32_t nbw, int32_t block_len,
-                              uint8_t* out, int64_t out_cap) {
-    if (nf <= 0 || nc <= 0 || nbh <= 0 || nbw <= 0 || block_len < 2 ||
-        block_len > 4096)
-        return -2;
-    const int64_t bpp = (int64_t)nbh * nbw;       // blocks per plane
-    const int64_t bpf = bpp * nc;                 // blocks per frame
-    const int64_t nblk = bpf * nf;
-    if (n != nblk * block_len) return -2;
-    rc::Encoder e{out, out_cap};
-    v11::SigCtx cx;
-    uint8_t* sig_prev = new uint8_t[bpf * block_len]();
-    uint8_t* sig_cur = new uint8_t[bpf * block_len]();
-    uint8_t* cbfs = new uint8_t[nblk]();
-    const int bl = block_len;
-    for (int64_t bi = 0; bi < nblk; ++bi) {
-        const int16_t* blk = data + bi * bl;
-        int last = -1;
-        for (int p = bl - 1; p >= 0; --p)
-            if (blk[p]) { last = p; break; }
-        int cbf = last >= 0;
-        int64_t fi = bi / bpf, rem = bi % bpf;
-        int64_t ch = rem / bpp, pi = rem % bpp;
-        int col = (int)(pi % nbw), row = (int)(pi / nbw);
-        int l = col ? cbfs[bi - 1] : 0;
-        int u = row ? cbfs[bi - nbw] : 0;
-        int tm = fi ? cbfs[bi - bpf] : 0;
+    // Block bi's frame, its place within the frame, and its CBF context.
+    struct At { int64_t fi, rem, row, col; int cbf_ctx; };
+    At at(int64_t bi) const {
+        At a;
+        a.fi = bi / bpf;
+        a.rem = bi % bpf;
+        int64_t ch = a.rem / bpp, pi = a.rem % bpp;
+        a.col = pi % nbw;
+        a.row = pi / nbw;
+        int l = a.col ? cbfs[bi - 1] : 0;
+        int u = a.row ? cbfs[bi - nbw] : 0;
+        int tm = a.fi ? cbfs[bi - bpf] : 0;
         int ych = ch ? cbfs[bi - ch * bpp] : 2;
-        e.bit(&cx.cbf[((l * 2 + u) * 2 + tm) * 3 + ych], cbf);
+        a.cbf_ctx = ((l * 2 + u) * 2 + tm) * 3 + ych;
+        return a;
+    }
+
+    // One block: blk holds its bl coefficients in scan order, last the
+    // scan position of its last nonzero one (-1: none).
+    void encode(rc::Encoder& e, int64_t bi, const At& a, const int16_t* blk,
+                int last) {
+        int cbf = last >= 0;
+        e.bit(&cx.cbf[a.cbf_ctx], cbf);
         cbfs[bi] = (uint8_t)cbf;
-        uint8_t* sp = sig_prev + rem * bl;
-        uint8_t* sc = sig_cur + rem * bl;
+        uint8_t* sp = sig_prev + a.rem * bl;
+        uint8_t* sc = sig_cur + a.rem * bl;
         memset(sc, 0, bl);
         if (cbf) {
             int gt1 = 0, prevsig = 1;
             for (int p = 0; p <= last; ++p) {
                 int v = blk[p];
                 int sig = v != 0;
-                int tctx = fi ? sp[p] : 2;
+                int tctx = a.fi ? sp[p] : 2;
                 if (p < bl - 1)
-                    e.bit(&cx.sig[(v11::posb(p) * 3 + tctx) * 2 + prevsig],
-                          sig);
+                    e.bit(&cx.sig[(posb(p) * 3 + tctx) * 2 + prevsig], sig);
                 prevsig = sig;
                 if (sig) {
                     sc[p] = 1;
@@ -717,13 +745,144 @@ int64_t vcs_rc_encode_i16_sig(const int16_t* data, int64_t n,
                     e.tu(cx.lev[b * 2 + gt1], rc::kLevCap, m);
                     if (v > 1 || v < -1) gt1 = 1;
                     if (p < bl - 1)
-                        e.bit(&cx.last[v11::posb(p)], p == last);
+                        e.bit(&cx.last[posb(p)], p == last);
                 }
             }
         }
         memcpy(sp, sc, bl);
     }
-    delete[] sig_prev; delete[] sig_cur; delete[] cbfs;
+
+    // One block into a zeroed blk: the level of scan position p goes to
+    // blk[place[p]]. False on a malformed level code.
+    bool decode(rc::Decoder& d, int64_t bi, const At& a, int16_t* blk,
+                const int32_t* place) {
+        int cbf = d.bit(&cx.cbf[a.cbf_ctx]);
+        cbfs[bi] = (uint8_t)cbf;
+        uint8_t* sp = sig_prev + a.rem * bl;
+        uint8_t* sc = sig_cur + a.rem * bl;
+        memset(sc, 0, bl);
+        if (cbf) {
+            int gt1 = 0, prevsig = 1;
+            for (int p = 0; p < bl; ++p) {
+                int tctx = a.fi ? sp[p] : 2;
+                int sig = p < bl - 1
+                    ? d.bit(&cx.sig[(posb(p) * 3 + tctx) * 2 + prevsig])
+                    : 1;
+                prevsig = sig;
+                if (!sig) continue;
+                sc[p] = 1;
+                int b = v9::band(p, bl);
+                int neg = d.bit(&cx.sign[b]);
+                uint32_t m = d.tu(cx.lev[b * 2 + gt1], rc::kLevCap);
+                if (d.error) return false;
+                int32_t v = (int32_t)m + 1;
+                blk[place[p]] = (int16_t)(neg ? -v : v);
+                if (v > 1) gt1 = 1;
+                if (p == bl - 1) break;
+                if (d.bit(&cx.last[posb(p)])) break;
+            }
+        }
+        memcpy(sp, sc, bl);
+        return true;
+    }
+};
+
+// The values of a stream of nf x nc x nbh x nbw blocks of block_len.
+inline int64_t sig_values(int32_t nf, int32_t nc, int32_t nbh, int32_t nbw,
+                          int32_t block_len) {
+    return (int64_t)nbh * nbw * nc * nf * block_len;
+}
+
+inline int last_nonzero(const int16_t* blk, int bl) {
+    for (int p = bl - 1; p >= 0; --p)
+        if (blk[p]) return p;
+    return -1;
+}
+
+// Raster planes [nf * nc, h, w] in blocks of bs x bs. False where the
+// geometry does not tile or the order table is not of the block.
+struct Raster {
+    int64_t h, w;
+    int bs, bl;
+    int32_t place[kMaxBlockLen];      // scan position -> offset in a plane
+
+    bool init(int32_t h_, int32_t w_, int32_t bs_, const int32_t* order) {
+        if (bs_ < 2 || bs_ > 64 || h_ <= 0 || w_ <= 0 || h_ % bs_ ||
+            w_ % bs_)
+            return false;
+        h = h_; w = w_; bs = bs_; bl = bs_ * bs_;
+        for (int p = 0; p < bl; ++p) {
+            if (order[p] < 0 || order[p] >= bl) return false;
+            place[p] = (int32_t)((order[p] / bs) * w + order[p] % bs);
+        }
+        return true;
+    }
+};
+
+// The raster pair's block loops, in the block order of the stream pair.
+// BS is bs when it is a constant the loops unroll to (4, 8, 16), else 0.
+template <int BS>
+void encode_planes(SigCoder& s, rc::Encoder& e, const Raster& r,
+                   const int16_t* data) {
+    const int bs = BS ? BS : r.bs, bl = bs * bs;
+    const int64_t w = r.w, nbh = r.h / bs, nbw = r.w / bs;
+    int16_t blk[kMaxBlockLen];
+    int64_t bi = 0;
+    for (int64_t pl = 0; pl < s.nblk / s.bpp; ++pl)
+        for (int64_t row = 0; row < nbh; ++row) {
+            const int16_t* strip = data + (pl * r.h + row * bs) * w;
+            for (int64_t col = 0; col < nbw; ++col, ++bi) {
+                const int16_t* src = strip + col * bs;
+                int any = 0;
+                for (int y = 0; y < bs; ++y)
+                    for (int x = 0; x < bs; ++x) any |= src[y * w + x];
+                int last = -1;
+                if (any) {
+                    for (int p = 0; p < bl; ++p) blk[p] = src[r.place[p]];
+                    last = last_nonzero(blk, bl);
+                }
+                s.encode(e, bi, s.at(bi), blk, last);
+            }
+        }
+}
+
+// Zeroes each strip of a block row just before its blocks are decoded
+// into it, while it is in cache. False on a malformed level code.
+template <int BS>
+bool decode_planes(SigCoder& s, rc::Decoder& d, const Raster& r,
+                   int16_t* out) {
+    const int bs = BS ? BS : r.bs;
+    const int64_t w = r.w, nbh = r.h / bs, nbw = r.w / bs;
+    int64_t bi = 0;
+    for (int64_t pl = 0; pl < s.nblk / s.bpp; ++pl)
+        for (int64_t row = 0; row < nbh; ++row) {
+            int16_t* strip = out + (pl * r.h + row * bs) * w;
+            memset(strip, 0, (size_t)bs * w * sizeof(int16_t));
+            for (int64_t col = 0; col < nbw; ++col, ++bi)
+                if (!s.decode(d, bi, s.at(bi), strip + col * bs, r.place))
+                    return false;
+        }
+    return true;
+}
+
+}  // namespace v11
+
+extern "C" {
+
+int64_t vcs_rc_encode_i16_sig(const int16_t* data, int64_t n,
+                              int32_t nf, int32_t nc, int32_t nbh,
+                              int32_t nbw, int32_t block_len,
+                              uint8_t* out, int64_t out_cap) {
+    if (nf <= 0 || nc <= 0 || nbh <= 0 || nbw <= 0 || block_len < 2 ||
+        block_len > v11::kMaxBlockLen)
+        return -2;
+    if (n != v11::sig_values(nf, nc, nbh, nbw, block_len)) return -2;
+    v11::SigCoder s(nf, nc, nbh, nbw, block_len);
+    rc::Encoder e{out, out_cap};
+    for (int64_t bi = 0; bi < s.nblk; ++bi) {
+        const int16_t* blk = data + bi * block_len;
+        s.encode(e, bi, s.at(bi), blk, v11::last_nonzero(blk, block_len));
+    }
     return e.flush();
 }
 
@@ -732,62 +891,61 @@ int64_t vcs_rc_decode_i16_sig(const uint8_t* in, int64_t nbytes,
                               int32_t nf, int32_t nc, int32_t nbh,
                               int32_t nbw, int32_t block_len) {
     if (nf <= 0 || nc <= 0 || nbh <= 0 || nbw <= 0 || block_len < 2 ||
-        block_len > 4096)
+        block_len > v11::kMaxBlockLen)
         return -2;
-    const int64_t bpp = (int64_t)nbh * nbw;
-    const int64_t bpf = bpp * nc;
-    const int64_t nblk = bpf * nf;
-    if (n_out != nblk * block_len) return -2;
+    if (n_out != v11::sig_values(nf, nc, nbh, nbw, block_len)) return -2;
+    v11::SigCoder s(nf, nc, nbh, nbw, block_len);
+    int32_t place[v11::kMaxBlockLen];
+    for (int p = 0; p < block_len; ++p) place[p] = p;
     rc::Decoder d{in, nbytes};
     d.init();
-    v11::SigCtx cx;
-    uint8_t* sig_prev = new uint8_t[bpf * block_len]();
-    uint8_t* sig_cur = new uint8_t[bpf * block_len]();
-    uint8_t* cbfs = new uint8_t[nblk]();
-    const int bl = block_len;
     memset(out, 0, (size_t)n_out * sizeof(int16_t));
-    for (int64_t bi = 0; bi < nblk; ++bi) {
-        int16_t* blk = out + bi * bl;
-        int64_t fi = bi / bpf, rem = bi % bpf;
-        int64_t ch = rem / bpp, pi = rem % bpp;
-        int col = (int)(pi % nbw), row = (int)(pi / nbw);
-        int l = col ? cbfs[bi - 1] : 0;
-        int u = row ? cbfs[bi - nbw] : 0;
-        int tm = fi ? cbfs[bi - bpf] : 0;
-        int ych = ch ? cbfs[bi - ch * bpp] : 2;
-        int cbf = d.bit(&cx.cbf[((l * 2 + u) * 2 + tm) * 3 + ych]);
-        cbfs[bi] = (uint8_t)cbf;
-        uint8_t* sp = sig_prev + rem * bl;
-        uint8_t* sc = sig_cur + rem * bl;
-        memset(sc, 0, bl);
-        if (cbf) {
-            int gt1 = 0, prevsig = 1;
-            for (int p = 0; p < bl; ++p) {
-                int tctx = fi ? sp[p] : 2;
-                int sig = p < bl - 1
-                    ? d.bit(&cx.sig[(v11::posb(p) * 3 + tctx) * 2 + prevsig])
-                    : 1;
-                prevsig = sig;
-                if (!sig) continue;
-                sc[p] = 1;
-                int b = v9::band(p, bl);
-                int neg = d.bit(&cx.sign[b]);
-                uint32_t m = d.tu(cx.lev[b * 2 + gt1], rc::kLevCap);
-                if (d.error) {
-                    delete[] sig_prev; delete[] sig_cur; delete[] cbfs;
-                    return -1;
-                }
-                int32_t v = (int32_t)m + 1;
-                blk[p] = (int16_t)(neg ? -v : v);
-                if (v > 1) gt1 = 1;
-                if (p == bl - 1) break;
-                if (d.bit(&cx.last[v11::posb(p)])) break;
-            }
-        }
-        memcpy(sp, sc, bl);
+    for (int64_t bi = 0; bi < s.nblk; ++bi)
+        if (!s.decode(d, bi, s.at(bi), out + bi * block_len, place))
+            return -1;
+    return d.past_end ? -1 : n_out;
+}
+
+// data: C-contiguous int16 planes [nf, nc, h, w]; order: bs*bs int32, the
+// raster index within a block of each scan position.
+int64_t vcs_rc_encode_i16_sig_raster(const int16_t* data, int64_t n,
+                                     int32_t nf, int32_t nc, int32_t h,
+                                     int32_t w, int32_t bs,
+                                     const int32_t* order,
+                                     uint8_t* out, int64_t out_cap) {
+    v11::Raster r;
+    if (nf <= 0 || nc <= 0 || !r.init(h, w, bs, order)) return -2;
+    if (n != v11::sig_values(nf, nc, h / bs, w / bs, r.bl)) return -2;
+    v11::SigCoder s(nf, nc, h / bs, w / bs, r.bl);
+    rc::Encoder e{out, out_cap};
+    switch (bs) {
+        case 4: v11::encode_planes<4>(s, e, r, data); break;
+        case 8: v11::encode_planes<8>(s, e, r, data); break;
+        case 16: v11::encode_planes<16>(s, e, r, data); break;
+        default: v11::encode_planes<0>(s, e, r, data);
     }
-    delete[] sig_prev; delete[] sig_cur; delete[] cbfs;
-    return n_out;
+    return e.flush();
+}
+
+int64_t vcs_rc_decode_i16_sig_raster(const uint8_t* in, int64_t nbytes,
+                                     int16_t* out, int64_t n_out,
+                                     int32_t nf, int32_t nc, int32_t h,
+                                     int32_t w, int32_t bs,
+                                     const int32_t* order) {
+    v11::Raster r;
+    if (nf <= 0 || nc <= 0 || !r.init(h, w, bs, order)) return -2;
+    if (n_out != v11::sig_values(nf, nc, h / bs, w / bs, r.bl)) return -2;
+    v11::SigCoder s(nf, nc, h / bs, w / bs, r.bl);
+    rc::Decoder d{in, nbytes};
+    d.init();
+    bool ok;
+    switch (bs) {
+        case 4: ok = v11::decode_planes<4>(s, d, r, out); break;
+        case 8: ok = v11::decode_planes<8>(s, d, r, out); break;
+        case 16: ok = v11::decode_planes<16>(s, d, r, out); break;
+        default: ok = v11::decode_planes<0>(s, d, r, out);
+    }
+    return !ok || d.past_end ? -1 : n_out;
 }
 
 // Mode maps (v11): truncated unary conditioned on the (left, up) neighbor

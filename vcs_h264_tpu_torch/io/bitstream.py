@@ -30,7 +30,9 @@ spans (`utils/profiling.py`): the roots `save_vcs` (count `frames`) and
 range coder call `vcs.rc_encode` / `vcs.rc_decode` on whatever thread runs
 it, every zigzag scan `vcs.zigzag`, and the loader's phase 3
 `load_vcs.intra`; copies to host memory count `d2h_copies` and `d2h_bytes`
-on the span open around them.
+on the span open around them. The v11 coefficient coder scans the planes
+inside the native coder, whose spans count `zigzag_fused`; `vcs.zigzag`
+times the scans of older versions and of the Python mirror.
 
 Versions 3 to 11 load; the writer emits 11. A version-3 stream carries
 rounded coefficients of the wrapped (mod-256) residual and loads with
@@ -91,6 +93,7 @@ NATIVE_SRC = _build.CSRC / "bitstream.cpp"
 CXX_FLAGS = ("-O3", "-Wall", "-shared", "-fPIC")
 
 _i16p = ctypes.POINTER(ctypes.c_int16)
+_i32p = ctypes.POINTER(ctypes.c_int32)
 _u8p = ctypes.POINTER(ctypes.c_uint8)
 _i64, _i32 = ctypes.c_int64, ctypes.c_int32
 # C entry point -> argument types; every one returns an int64 (bytes
@@ -114,6 +117,12 @@ NATIVE_SIGNATURES = {
     # blob, len, out, n, nf, nc, nbh, nbw, block_len
     "vcs_rc_decode_i16_sig": (_u8p, _i64, _i16p, _i64, _i32, _i32, _i32,
                               _i32, _i32),
+    # planes, n, nf, nc, h, w, bs, order, out, cap
+    "vcs_rc_encode_i16_sig_raster": (_i16p, _i64, _i32, _i32, _i32, _i32,
+                                     _i32, _i32p, _u8p, _i64),
+    # blob, len, out, n, nf, nc, h, w, bs, order
+    "vcs_rc_decode_i16_sig_raster": (_u8p, _i64, _i16p, _i64, _i32, _i32,
+                                     _i32, _i32, _i32, _i32p),
     # data, n, rows, cols, nsym, out, cap
     "vcs_rc_encode_modes2d": (_u8p, _i64, _i32, _i32, _i32, _u8p, _i64),
     # blob, len, out, n, rows, cols, nsym
@@ -359,6 +368,7 @@ class _RcDecoder:
     def __init__(self, blob: bytes):
         self.buf = blob
         self.pos = 0
+        self.past_end = 0               # reads beyond the blob, as zeros
         self.range = 0xFFFFFFFF
         self.code = 0
         self._next()                    # leading cache byte (always 0)
@@ -370,6 +380,7 @@ class _RcDecoder:
             b = self.buf[self.pos]
             self.pos += 1
             return b
+        self.past_end += 1
         return 0
 
     def bit(self, probs, idx) -> int:
@@ -778,6 +789,9 @@ def _py_rc_decode_i16_sig(blob: bytes, n: int, nf: int, nc: int, nbh: int,
                 if p == bl - 1 or d.bit(last_bins, _sig_posb(p)):
                     break
         sig_prev[rem] = sc
+    if d.past_end:
+        # the encoder's flush leaves every byte its decoder reads
+        raise ValueError("sig stream truncated")
     return out
 
 
@@ -1037,6 +1051,77 @@ def rc_decode_i16_sig(blob: bytes, n: int, nf: int, nc: int, nbh: int,
     return out
 
 
+def _raster_geom(shape, bs: int):
+    """(nf, nc, H, W) of coefficient planes [..., H, W] in bs x bs blocks;
+    ValueError where the blocks do not tile the planes."""
+    if len(shape) < 2 or not 2 <= bs <= 64:
+        raise ValueError(f"no bs={bs} block planes of shape {tuple(shape)}")
+    h, w = shape[-2:]
+    if h <= 0 or w <= 0 or h % bs or w % bs:
+        raise ValueError(f"planes {h}x{w} are not tiled by {bs}x{bs} blocks")
+    return (*_sig_geom(shape), h, w)
+
+
+def rc_encode_i16_sig_raster(planes: np.ndarray, bs: int) -> bytes:
+    """int16 coefficient planes [..., H, W] -> the bytes of
+    `rc_encode_i16_sig` over their zigzag scan per bs x bs block. The native
+    coder scans each block inside its block loop, so no scanned copy is
+    made; without it, `_zigzag_plane` and the mirror code them."""
+    planes = np.ascontiguousarray(planes, dtype=np.int16)
+    nf, nc, h, w = _raster_geom(planes.shape, bs)
+    lib = load_native()
+    if lib is None:
+        return rc_encode_i16_sig(_zigzag_plane(planes, bs), nf, nc,
+                                 h // bs, w // bs, bs * bs)
+    return _native_encode_raster(lib, planes, nf, nc, h, w, bs)
+
+
+def rc_decode_i16_sig_raster(blob: bytes, shape, bs: int) -> np.ndarray:
+    """Bytes of `rc_encode_i16_sig_raster` -> the int16 planes of `shape`.
+    The native decoder stores each level at its place in the planes;
+    without it, the mirror and `_unzigzag_plane` decode them."""
+    shape = tuple(int(d) for d in shape)
+    nf, nc, h, w = _raster_geom(shape, bs)
+    lib = load_native()
+    if lib is None:
+        flat = rc_decode_i16_sig(blob, int(np.prod(shape)), nf, nc,
+                                 h // bs, w // bs, bs * bs)
+        return _unzigzag_plane(flat, shape, bs)
+    return _native_decode_raster(lib, blob, shape, nf, nc, h, w, bs)
+
+
+def _order_ptr(bs: int):
+    return zigzag_order_np(bs).ctypes.data_as(ctypes.POINTER(ctypes.c_int32))
+
+
+@traced("vcs.rc_encode")
+def _native_encode_raster(lib, planes, nf, nc, h, w, bs) -> bytes:
+    add_counts(zigzag_fused=1)
+    cap = 8 * planes.size + 16
+    out = np.empty(cap, np.uint8)
+    nbytes = lib.vcs_rc_encode_i16_sig_raster(
+        planes.ctypes.data_as(ctypes.POINTER(ctypes.c_int16)), planes.size,
+        nf, nc, h, w, bs, _order_ptr(bs),
+        out.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)), cap)
+    if nbytes < 0:
+        raise ValueError("bitstream encode error")
+    return out[:nbytes].tobytes()
+
+
+@traced("vcs.rc_decode")
+def _native_decode_raster(lib, blob, shape, nf, nc, h, w, bs) -> np.ndarray:
+    add_counts(zigzag_fused=1)
+    inp = np.frombuffer(blob, np.uint8)
+    out = np.empty(shape, np.int16)
+    got = lib.vcs_rc_decode_i16_sig_raster(
+        inp.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)), len(inp),
+        out.ctypes.data_as(ctypes.POINTER(ctypes.c_int16)), out.size,
+        nf, nc, h, w, bs, _order_ptr(bs))
+    if got != out.size:
+        raise ValueError(f"bitstream decode error: {got} != {out.size}")
+    return out
+
+
 @traced("vcs.rc_encode")
 def rc_encode_modes2d(data: np.ndarray, rows: int, cols: int,
                       nsym: int) -> bytes:
@@ -1155,26 +1240,14 @@ def _coeff_codecs(version: int, bs: int):
     """(encode, decode) for blockwise coefficient ARRAYS: encode takes the
     [..., H, W] int16 array, decode takes (blob, shape) and returns the
     unzigzagged int16 array. v11 significance-map coder (needs the stream
-    geometry for its spatial/temporal contexts), v10 CBF tokens, v9
-    band-conditioned contexts, v8 single-context range coder, older
-    exp-Golomb."""
-    bl = bs * bs
-
+    geometry for its spatial/temporal contexts; it scans the planes in
+    place), v10 CBF tokens, v9 band-conditioned contexts, v8 single-context
+    range coder, older exp-Golomb."""
     if version >= 11:
-        def enc(res16):
-            nf, nc = _sig_geom(res16.shape)
-            h, w = res16.shape[-2:]
-            return rc_encode_i16_sig(_zigzag_plane(res16, bs), nf, nc,
-                                     h // bs, w // bs, bl)
+        return (lambda res16: rc_encode_i16_sig_raster(res16, bs),
+                lambda blob, shape: rc_decode_i16_sig_raster(blob, shape, bs))
 
-        def dec(blob, shape):
-            nf, nc = _sig_geom(shape)
-            h, w = shape[-2:]
-            flat = rc_decode_i16_sig(blob, int(np.prod(shape)), nf, nc,
-                                     h // bs, w // bs, bl)
-            return _unzigzag_plane(flat, shape, bs).astype(np.int16)
-        return enc, dec
-
+    bl = bs * bs
     if version >= 9:
         enc_f = ((lambda d: rc_encode_i16_cbf(d, bl)) if version >= 10
                  else (lambda d: rc_encode_i16_b(d, bl)))
@@ -1653,7 +1726,8 @@ def _write_gop_fullres(fh, gop, lossless, cfg, bs) -> None:
                 return b""
             res = np.asarray(res)
             if cfg.with_dct:
-                res16 = np.round(res).astype(np.int16)
+                res16 = (res if res.dtype == np.int16
+                         else np.round(res).astype(np.int16))
                 enc_co, _ = _coeff_codecs(_VERSION, bs)
                 return enc_co(res16)
             # wrap residuals are bytes; recenter to int16 around 0 for
