@@ -1,29 +1,43 @@
-"""The comparison's control: the reference put in the program's place and
-computed in bfloat16, the precision below the float32 the configurations
-state, held against the float32 reference exactly as a run holds the
-program. It has to come out as not correct.
+"""The comparison's control: the reference put in the program's place with
+one step taken that would tempt a later change, held against the reference
+exactly as a run holds the program. It has to come out as not correct.
 
     python3 benchmark/control.py --workload <cell> --seeds <n> [<n> ...]
 
-For each seed it makes the cell's frame pool, draws the segments and GOPs
-a run's comparison would (the first `check_segments` segments of the
-window's offsets, and the seeded GOPs of each), and prints one JSON line
-with the numbers a run compares: the bfloat16 reference's stream fields
-and decoded frames against the float32 reference's. No window is needed:
-the program is not run. The benchmark's own runs never run this.
+The control is found by name: a configuration's file may name one under
+`control`, whose `reference_gops` is in `benchmark/controls/<name>.py`;
+without one it is `bfloat16`, the reference computed in the precision
+below the float32 the configurations state. For each seed it makes the
+cell's frame pool, draws the segments and GOPs a run's comparison would
+(the first `check_segments` segments of the window's offsets, and the
+seeded GOPs of each), and prints one JSON line with the numbers a run
+compares, beside their limits, and whether they pass. No window is
+needed: the program is not run. The benchmark's own runs never run this.
 """
 
 import argparse
+import importlib.util
 import json
 import sys
 import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent.parent
+DEFAULT = "bfloat16"
+
+
+def control(root, config: dict):
+    """The `reference_gops` of the control the configuration names."""
+    name = config.get("control", DEFAULT)
+    path = Path(root) / "benchmark" / "controls" / f"{name}.py"
+    spec = importlib.util.spec_from_file_location(
+        "benchmark_control_" + name.replace(".", "_").replace("-", "_"), path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module.reference_gops
 
 
 def readings(root, name: str, seed: int, device) -> dict:
-    import torch
     from benchmark.harness import check, frames, manifest, traffic
     cell = manifest.Cell(root, name)
     config, mix = cell.config, cell.mix
@@ -39,12 +53,17 @@ def readings(root, name: str, seed: int, device) -> dict:
     starts = [o + g * gop_len for o, gops in zip(kept, picks) for g in gops]
     want, want_frames = check.reference_gops(pool, starts, gop_len, config,
                                              device)
-    got, got_frames = check.reference_gops(pool, starts, gop_len, config,
-                                           device, ftype=torch.bfloat16)
-    return dict(workload=name, seed=seed, gops=len(starts),
-                stream_mismatch=sum(check.mismatch(g, w)
-                                    for g, w in zip(got, want)),
-                frames_mismatch=int((got_frames != want_frames).sum()))
+    got, got_frames = control(root, config)(pool, starts, gop_len, config,
+                                            device)
+    values = dict(stream_mismatch=sum(check.mismatch(g, w)
+                                      for g, w in zip(got, want)),
+                  frames_mismatch=int((got_frames != want_frames).sum()))
+    checks = {k: {"value": v, "limit": check.LIMITS[k]}
+              for k, v in values.items()}
+    return dict(workload=name, seed=seed,
+                control=config.get("control", DEFAULT), gops=len(starts),
+                correct=check.passed(checks, len(starts)), **values,
+                checks=checks)
 
 
 def main(argv=None) -> int:

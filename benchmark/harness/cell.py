@@ -17,7 +17,10 @@ segment that finishes after `seconds`.
 
 A traced run first profiles a short sub-window of whole segments (each
 step under a record_function span), then measures the window as an
-untraced run does, and reports the cell's per-layer metrics.
+untraced run does, and reports the cell's per-layer metrics. An untraced
+run whose end-to-end metrics read the device's trace profiles such a
+sub-window after the window, so that neither the window nor `setup_s`
+holds the profiler.
 """
 
 from __future__ import annotations
@@ -171,6 +174,12 @@ def measure(server, pool, seg, offsets, seconds, reservoir) -> dict:
     return out
 
 
+def reads_trace(metrics: list) -> bool:
+    """Whether any of these manifest metrics is read from the device's
+    trace."""
+    return any(m["source"] == "device_trace" for m in metrics)
+
+
 def _device_info(device) -> dict:
     if device.type == "cuda":
         return dict(platform="gpu", kind=torch.cuda.get_device_name(device),
@@ -199,24 +208,27 @@ def run(root, name: str, seed: int, seconds: float, traced: bool, device,
         warm = traffic.offsets(seed, traffic.WARMUP, len(pool), seg)
         server.serve(_segment(pool, next(warm), seg), f"{workdir}/warm.vcs")
         tr, profiled = None, []
-        if traced and device.type == "cuda":
-            offs = traffic.offsets(seed, traffic.PROFILE, len(pool), seg)
+        offs = traffic.offsets(seed, traffic.PROFILE, len(pool), seg)
 
-            def run_segments():
-                profiled.clear()
-                start = time.perf_counter()
-                while (not profiled or time.perf_counter() - start
-                       < traffic.TRACE_MIN_SECONDS):
-                    off = next(offs)
-                    server.serve(_segment(pool, off, seg),
-                                 f"{workdir}/profiled.vcs", annotate=True)
-                    profiled.append(off)
+        def run_segments():
+            profiled.clear()
+            start = time.perf_counter()
+            while (not profiled or time.perf_counter() - start
+                   < traffic.TRACE_MIN_SECONDS):
+                off = next(offs)
+                server.serve(_segment(pool, off, seg),
+                             f"{workdir}/profiled.vcs", annotate=True)
+                profiled.append(off)
 
+        on_card = device.type == "cuda"
+        if traced and on_card:
             tr = trace.profile(run_segments, workdir)
         reservoir = Reservoir(mix["check_segments"], seed, workdir)
         win = measure(server, pool, seg,
                       traffic.offsets(seed, traffic.WINDOW, len(pool), seg),
                       seconds, reservoir)
+        if not traced and on_card and reads_trace(cell.end_to_end):
+            tr = trace.profile(run_segments, workdir)
         dev = _device_info(device)
         del server
         gc.collect()
@@ -261,13 +273,13 @@ def run(root, name: str, seed: int, seconds: float, traced: bool, device,
             value = cell.reader(m["name"])(rec)
             if value is not None:
                 metrics[m["name"]] = {"value": value, "unit": m["unit"]}
-        if tr is not None:
+        if traced and tr is not None:
             dev.update(busy_s=tr.busy_s, window_s=tr.window_s)
         result = dict(correct=(win["failed"] == 0
                                and check.passed(checks, n_compared)),
                       attempted=win["attempted"], failed=win["failed"],
                       metrics=metrics, device=dev)
-        if tr is not None:
+        if traced and tr is not None:
             result["breakdown"] = tr.breakdown()
         result["libraries"] = libraries
         how = "built" if libraries["built"] else "loaded"

@@ -81,10 +81,13 @@ class Trace:
     def window_s(self) -> float:
         return self.t1 - self.t0
 
-    def busy(self) -> list:
-        """The union of the device intervals, sorted [(start, end)]."""
+    def busy(self, cats=DEVICE_CATS) -> list:
+        """The union of the device intervals of categories `cats`, sorted
+        [(start, end)]."""
         out = []
-        for s, e, _, _ in self.device:
+        for s, e, _, c in self.device:
+            if c not in cats:
+                continue
             if out and s <= out[-1][1]:
                 out[-1][1] = max(out[-1][1], e)
             else:

@@ -14,6 +14,11 @@ Two layouts, as a configuration file states them:
     through the DCT alone (luma table on Y, chroma table on Cr and Cb), the
     B mode chosen on luma SAD.
 
+A pattern with no P-anchor (all-intra, `("I",)`; a B needs a P after it)
+codes each GOP as its lossy-intra I-frame alone, in either layout, with no
+vectors and no residual. Under `search_luma_only` a full-resolution search
+compares the G channel alone (4:2:0 searches luma anyway).
+
 Only whole GOPs of the configuration's pattern are coded, with lossy intra
 I-frames and the production residual (`quant_mode` "rounded", signed, DCT,
 block 8): the configurations the benchmark serves. Everything is plain
@@ -58,8 +63,7 @@ class Config:
         if not (cfg.quant_mode == "rounded" and cfg.with_dct
                 and cfg.with_residual and cfg.signed_residual
                 and cfg.intra_i and cfg.intra_qstep > 0
-                and cfg.block_size == 8 and not cfg.search_luma_only
-                and cfg.dtype == "float32"):
+                and cfg.block_size == 8 and cfg.dtype == "float32"):
             raise ValueError("the reference codes the production path with "
                              "lossy intra I-frames at block 8 in float32")
         return cfg
@@ -83,6 +87,12 @@ def _planar(frames):
 
 
 def _search(curs, refs, cfg, threshold, log):
+    """Under `search_luma_only` a full-resolution search compares the G
+    channel (index 1 of planar BGR) alone, against a third of the threshold,
+    which is denominated in 3-channel SAD; the vectors still move all
+    three channels."""
+    if cfg.search_luma_only and not cfg.chroma_420:
+        curs, refs, threshold = curs[:, :, 1:2], refs[:, 1:2], threshold // 3
     return ops.motion_search(curs, refs, cfg.block_size, cfg.search_reach,
                              cfg.search_step, threshold, log)
 
@@ -104,9 +114,32 @@ def encode(frames: torch.Tensor, cfg: Config, ftype=torch.float32,
     [G, L, H, W, 3])."""
     if frames.shape[1] != len(cfg.gop_pattern):
         raise ValueError("the reference codes whole GOPs only")
+    if "P" not in cfg.gop_pattern:
+        return encode_intra_only(frames, cfg)
     if cfg.chroma_420:
         return _encode_420(_planar(frames), cfg, ftype, log)
     return _encode_444(_planar(frames), cfg, ftype, log)
+
+
+def encode_intra_only(frames: torch.Tensor, cfg: Config, intra=_intra):
+    """GOPs of one I-frame, uint8 [G, 1, H, W, 3] -> (the intra payload and
+    vectors int32 [G, 0, nbh, nbw, 2], the intra reconstruction as the
+    decoded frames). `intra` codes planes [G, C, H, W] as `_intra` does; a
+    control puts a broken one in its place."""
+    x = _planar(frames)
+    g, _, _, h, w = x.shape
+    mv = torch.zeros((g, 0, h // cfg.block_size, w // cfg.block_size, 2),
+                     dtype=torch.int32, device=x.device)
+    if not cfg.chroma_420:
+        iq, im, ie, i_rec = intra(x[:, 0], cfg.intra_qstep)
+        fields = dict(i_qcoef=iq, i_modes=im, i_escape=ie, mv=mv)
+        return fields, i_rec[:, None].movedim(-3, -1).contiguous()
+    y, c = ops.ingest_420(x[:, 0])
+    iq_y, im_y, ie_y, y_i = intra(y[:, None], cfg.intra_qstep)
+    iq_c, im_c, ie_c, c_i = intra(c, cfg.intra_qstep)
+    fields = dict(iq_y=iq_y, im_y=im_y, ie_y=ie_y, iq_c=iq_c, im_c=im_c,
+                  ie_c=ie_c, mv=mv)
+    return fields, ops.emit_bgr(y_i, c_i[:, None]).movedim(-3, -1).contiguous()
 
 
 def _encode_444(x, cfg, ftype, log):

@@ -11,7 +11,8 @@ are not asked for are skipped by their length fields, so that every byte
 of the file is accounted for without decoding it.
 
 Only the layouts the benchmark serves are read: lossy-intra I-frames
-(section type 2) with DCT residuals, full resolution or 4:2:0.
+(section type 2) with DCT residuals, full resolution or 4:2:0, and GOPs of
+an I-frame alone, whose residual sections are empty.
 """
 
 from __future__ import annotations
@@ -344,7 +345,7 @@ def read(data: bytes, want=()):
             out["res_y"] = _coeff_section(f, (n_p, 1, h, w), bs, dec)
             out["res_c"] = _coeff_section(f, (n_p, 2, h // 2, w // 2), bs,
                                           dec)
-            if dec:
+            if out["res_y"] is not None:
                 out["res_y"] = out["res_y"][:, 0]
         else:
             out["residuals"] = _coeff_section(f, (n_p, 3, h, w), bs, dec)

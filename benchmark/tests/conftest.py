@@ -63,6 +63,29 @@ def add_cell(root: Path, config: str, traffic: str) -> str:
     return name
 
 
+def add_allintra_cell(root: Path) -> str:
+    """Add to the copy under `root`, as files and manifest entries as a
+    later PR would, an all-intra 4:2:0 configuration (the 4:2:0 file with
+    GOPs of one I-frame, whose control is open-loop intra) and a mix of one
+    `gop_batch` of GOPs a segment, every GOP of a sampled segment compared
+    -> the cell's name."""
+    manifest = json.loads((root / "BENCHMARK.json").read_text())
+    cfg = json.loads((root / "benchmark/configs/c420_1080p_randomaccess.json")
+                     .read_text())
+    cfg.update(name="c420_allintra", control="open_loop_intra",
+               codec=dict(cfg["codec"], gop_pattern=["I"]))
+    (root / "benchmark/configs/c420_allintra.json").write_text(
+        json.dumps(cfg))
+    mix = {"segment": {"unit": "gop_batch", "min_video_seconds": 0},
+           "check_segments": 1, "check_gops_per_segment": cfg["gop_batch"]}
+    (root / "benchmark/traffic/one_batch.json").write_text(json.dumps(mix))
+    manifest["configs"].append(dict(
+        name="c420_allintra", source="a test", reduced=[], why="a test",
+        file="benchmark/configs/c420_allintra.json"))
+    (root / "BENCHMARK.json").write_text(json.dumps(manifest))
+    return add_cell(root, "c420_allintra", "one_batch")
+
+
 @pytest.fixture
 def tiny_root(tmp_path) -> Path:
     shutil.copytree(REPO / "benchmark", tmp_path / "benchmark",

@@ -5,7 +5,9 @@ benchmark are found and run, at a tiny size on the CPU, with no edit to
 
 import json
 
-from conftest import run_cell
+from conftest import add_allintra_cell, run_cell
+
+import control  # benchmark/control.py
 
 NEW_METRIC = '''"""Segments completed in the window."""
 
@@ -61,12 +63,35 @@ def test_a_new_cell_config_mix_and_metric_run_from_files(tiny_root):
     assert (tiny_root / "benchmark/run.py").read_bytes() == run_py
 
 
+def test_an_all_intra_cell_runs_from_files(tiny_root):
+    code = [tiny_root / "benchmark/run.py", tiny_root / "benchmark/control.py",
+            *sorted((tiny_root / "benchmark/harness").glob("*.py")),
+            *sorted((tiny_root / "benchmark/controls").glob("*.py"))]
+    before = [p.read_bytes() for p in code]
+    name = add_allintra_cell(tiny_root)
+    # a segment is one batch of 8 I-frames, every GOP of it compared
+    plain = run_cell(tiny_root, name)
+    assert plain["correct"] and plain["gops_compared"] == 8
+    assert set(plain["metrics"]) == {"fps", "setup_s"}
+    traced = run_cell(tiny_root, name, trace=1)
+    assert traced["correct"] and traced["gops_compared"] == 8
+    assert traced["metrics"]["encoder_ms_per_frame"]["value"] > 0
+    # the control its configuration names is found by file, and fails
+    ctl = control.readings(tiny_root, name, 2**33 + 1, "cpu")
+    assert ctl["control"] == "open_loop_intra" and ctl["gops"] == 8
+    assert not ctl["correct"]
+    assert [p.read_bytes() for p in code] == before
+
+
 def test_every_cell_of_the_manifest_runs_on_the_cpu(tiny_root):
     manifest = json.loads((tiny_root / "BENCHMARK.json").read_text())
     for w in manifest["workloads"]:
         r = run_cell(tiny_root, w["name"], seconds=0.2)
         assert r["correct"], (w["name"], r)
+        # a metric read from the device's trace has nothing to read on the
+        # CPU, and is left out
         wanted = {m["name"] for m in manifest["end_to_end"]
-                  if w["name"] in m.get("workloads", [w["name"]])}
+                  if w["name"] in m.get("workloads", [w["name"]])
+                  and m["source"] != "device_trace"}
         assert set(r["metrics"]) == wanted
         assert list(r)[-1] == "checks"

@@ -2,12 +2,14 @@
 whole run, its look for a card skipped, on the CPU at a tiny size, once
 for each fault a served codec can have, with the mixes' own sample of
 segments and GOPs. Both mixes are tried: `live` (one GOP a segment) and
-`vod` (a batch of GOPs a segment, where a fault may sit in one slot)."""
+`vod` (a batch of GOPs a segment, where a fault may sit in one slot); an
+all-intra cell, whose GOPs have no vectors, gets its own fault in the
+intra payload."""
 
 import numpy as np
 import pytest
 
-from conftest import add_cell, run_cell
+from conftest import add_allintra_cell, add_cell, run_cell
 
 
 def _altered_frame(monkeypatch):
@@ -66,6 +68,19 @@ def _altered_vector(monkeypatch):
     monkeypatch.setattr(Encoder, "encode_frames", encode_frames)
 
 
+def _altered_intra_coefficient(monkeypatch):
+    """A token altered where it is produced, in one GOP slot of the batch:
+    one quantised luma intra coefficient of every segment's middle GOP."""
+    from vcs_h264_tpu_torch.models.encoder import Encoder
+    real = Encoder.encode_frames
+
+    def encode_frames(self, frames, *a, **k):
+        video = real(self, frames, *a, **k)
+        video.gops[len(video.gops) // 2].iq_y[0, 0, 0] += 1
+        return video
+    monkeypatch.setattr(Encoder, "encode_frames", encode_frames)
+
+
 def _padded_file(monkeypatch):
     """The container's size wrong: a byte written past the last section."""
     from vcs_h264_tpu_torch.io import bitstream
@@ -99,3 +114,12 @@ def test_a_broken_path_is_not_correct(tiny_root, monkeypatch, fault, config,
     assert not broken["correct"]
     assert broken["checks"][number]["value"] > 0
     assert np.isfinite(broken["checks"][number]["value"])
+
+
+def test_an_altered_intra_coefficient_is_not_correct(tiny_root, monkeypatch):
+    cell = add_allintra_cell(tiny_root)
+    assert run_cell(tiny_root, cell, seconds=0.3)["correct"]
+    _altered_intra_coefficient(monkeypatch)
+    broken = run_cell(tiny_root, cell, seconds=0.3)
+    assert not broken["correct"]
+    assert broken["checks"]["stream_mismatch"]["value"] > 0

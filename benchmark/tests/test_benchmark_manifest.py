@@ -88,3 +88,18 @@ def test_every_cell_reports_enough():
         assert "setup_s" in e2e and len(e2e) >= 2
         layer = [m for m in M["per_layer"] if has(m)]
         assert layer and all(m["moves"] in e2e for m in layer)
+
+
+def test_a_split_metric_reads_as_the_quantity_it_splits():
+    """`<quantity>.<part>` names a quantity reported under another name in
+    cells whose bounded metric differs; its reader is the quantity's."""
+    from benchmark.harness import manifest
+    cell = manifest.Cell(REPO, M["workloads"][0]["name"])
+    split = [m["name"] for m in M["per_layer"] if "." in m["name"]]
+    assert split
+    for name in split:
+        base = name.split(".")[0]
+        assert (REPO / "benchmark/metrics" / f"{base}.py").exists()
+        a, b = cell.reader(name).__code__, cell.reader(base).__code__
+        assert (a.co_filename, a.co_firstlineno) == (
+            str(REPO / "benchmark/metrics" / f"{base}.py"), b.co_firstlineno)

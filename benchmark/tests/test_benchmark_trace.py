@@ -45,6 +45,40 @@ def test_busy_union_and_kernel_time():
                                   "benchmark.save_vcs": 600e-6})
 
 
+def test_kernel_ms_per_frame_reads_the_kernels_union():
+    from benchmark.harness import manifest, records
+    from conftest import REPO
+    cell = manifest.Cell(REPO, "c420_1080p_randomaccess.live")
+    ev = _events() + [{"ph": "X", "cat": "kernel", "name": "intra_encode",
+                       "ts": 1900.0, "dur": 300.0}]
+    t = trace.Trace(ev)
+    # kernels [1100, 1250] and [1900, 2000] once clipped; the copy is left
+    # out of the kernels' union, not of the device's
+    assert sum(e - s for s, e in t.busy(("kernel",))) == pytest.approx(
+        250e-6)
+    assert t.busy_s == pytest.approx(300e-6)
+
+    def rec(tr, gops):
+        return records.Records(
+            spans={}, frames=[], latency=[], window_s=0.0, setup_s=None,
+            trace=tr, config=cell.config, profiled_gops=gops,
+            search_log=list)
+    read = cell.reader("kernel_ms_per_frame")
+    gop = len(cell.config["codec"]["gop_pattern"])
+    assert read(rec(t, 2)) == pytest.approx(250e-3 / (2 * gop))
+    assert read(rec(None, 2)) is None and read(rec(t, 0)) is None
+    assert read(rec(trace.Trace(_events(kernels=0)), 2)) is None
+
+
+def test_an_untraced_run_profiles_only_for_a_device_metric():
+    from benchmark.harness.cell import reads_trace
+    host = [{"name": "fps", "source": "host_clock"},
+            {"name": "setup_s", "source": "host_clock"}]
+    assert not reads_trace(host) and not reads_trace([])
+    assert reads_trace(host + [{"name": "kernel_ms_per_frame",
+                                "source": "device_trace"}])
+
+
 def test_missing_launches_are_named():
     t = trace.Trace(_events(kernels=1))
     before = {n: 0 for names in trace.KERNEL_COUNTERS.values()
