@@ -9,10 +9,16 @@ native coder, so only a legacy load records `vcs.zigzag`; the bytes and
 frames are the same either way; the benchmark's eight readers of the
 recording give per-frame values, and None
 without a `save_vcs` root, and the two readers of the copies None unless
-the trace holds as many copies."""
+the trace holds as many copies. K5's launches, with its wrapper standing
+in for the plain version on the CPU, are counted as `intra_launches` on
+every path that launches it, and batches of all-intra GOPs are the spans
+`encode.intra_batch` and `decode.intra_batch`, which the benchmark's three
+readers of the all-intra cell read."""
 
 import collections
 import concurrent.futures
+import contextlib
+import ctypes
 import importlib.util
 import sys
 import threading
@@ -28,6 +34,7 @@ torch.set_num_threads(2)
 from vcs_h264_tpu_torch import CodecConfig  # noqa: E402
 from vcs_h264_tpu_torch.io.bitstream import load_vcs, save_vcs  # noqa: E402
 from vcs_h264_tpu_torch.models import Decoder, Encoder  # noqa: E402
+from vcs_h264_tpu_torch.ops import intra, intra_cuda  # noqa: E402
 from vcs_h264_tpu_torch.utils import profiling  # noqa: E402
 from vcs_h264_tpu_torch.utils.profiling import Span  # noqa: E402
 
@@ -45,6 +52,13 @@ STREAMS = {
     "444_ippp": (dict(intra_qstep=24), 4),
     "420_ibpbpbp": (dict(chroma_420=True, intra_qstep=24,
                          gop_pattern=tuple("IBPBPBP")), 7),
+}
+# the all-intra streams, GOPs of one I-frame (the codec of the benchmark's
+# all-intra cell in 4:2:0)
+ALLINTRA = {
+    "444_allintra": (dict(intra_qstep=24, gop_pattern=("I",)), 1),
+    "420_allintra": (dict(chroma_420=True, intra_qstep=24,
+                          gop_pattern=("I",)), 1),
 }
 
 
@@ -65,7 +79,7 @@ def _frames(n, h=16, w=32, seed=5):
 def _round_trip(stream, tmp_path, n_gops=2, tag="a"):
     """Encode -> save_vcs -> load_vcs -> Decoder.decode on the CPU ->
     (the encoded video, the file's bytes, the decoded frames)."""
-    kw, gop_len = STREAMS[stream]
+    kw, gop_len = {**STREAMS, **ALLINTRA}[stream]
     cfg = CodecConfig.production(**kw)
     video = Encoder(cfg, 8, device="cpu").encode_frames(
         _frames(n_gops * gop_len))
@@ -361,3 +375,96 @@ def test_copy_readers_hold_the_count_against_the_trace(name, monkeypatch):
     for rec in (_traced(11), _traced(13), _traced(12, segments=2),
                 _traced(0), SimpleNamespace(trace=None), None):
         assert read(rec) is None
+
+
+# ---------------------------------------------------------------------------
+# K5's launches and the batches of all-intra GOPs
+
+@pytest.fixture
+def k5_on_cpu(monkeypatch):
+    """K5's wrapper (`ops/intra_cuda.py` `intra_encode`) in the plain
+    version's place on the CPU, the launch the plain version written through
+    the pointers the wrapper passes, so that the wrapper counts its launches
+    as on a card. -> the wrapper's count of launches."""
+    plain = intra.intra_encode4x4_lossy_plain
+
+    class Lib:
+        @staticmethod
+        def vcs_intra_encode(src, qcoef, modes, escape, recon, n, h, w,
+                             qstep, *magic_and_stream):
+            planes = np.ctypeslib.as_array(
+                ctypes.cast(src, ctypes.POINTER(ctypes.c_uint8)),
+                shape=(n, h, w))
+            outs = plain(torch.from_numpy(planes.copy()), qstep)
+            for ptr, t in zip((qcoef, modes, escape, recon), outs):
+                ctypes.memmove(ptr, t.contiguous().data_ptr(), t.nbytes)
+            return 0
+
+    monkeypatch.setattr(intra_cuda, "LAUNCHES", dict(intra_cuda.LAUNCHES))
+    monkeypatch.setattr(intra_cuda, "_check", lambda *args, **kwargs: None)
+    monkeypatch.setattr(intra_cuda._build, "load_library", lambda: Lib)
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda dev: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda: SimpleNamespace(cuda_stream=None))
+    monkeypatch.setattr(intra, "intra_encode4x4_lossy_plain",
+                        intra_cuda.intra_encode)
+    return intra_cuda.LAUNCHES
+
+
+# stream -> (GOPs, K5 launches a batch of gop_batch 8)
+LAUNCH_CASES = {"444_ippp": (2, 1), "420_ibpbpbp": (2, 2),
+                "444_allintra": (11, 1), "420_allintra": (11, 2)}
+
+
+@pytest.mark.parametrize("stream", LAUNCH_CASES)
+def test_k5_launches_are_counted_on_every_path(stream, tmp_path, k5_on_cpu):
+    """Each K5 launch adds 1 to `intra_launches` of the innermost open span;
+    11 all-intra GOPs are a batch of 8 and a batch of 3, each one span of
+    the encoder and one of the decoder, with one download; bytes and
+    frames are the plain version's."""
+    n_gops, per_batch = LAUNCH_CASES[stream]
+    with torch.profiler.profile(activities=CPU):
+        video, data, decoded = _round_trip(stream, tmp_path, n_gops)
+    spans = profiling.recorded()
+    n_batches = -(-n_gops // 8)
+    assert k5_on_cpu["intra_encode"] == n_batches * per_batch
+    assert sum(s.counts.get("intra_launches", 0) for s in spans) == (
+        n_batches * per_batch)
+    batches = {name: [s.counts["frames"] for s in spans if s.name == name]
+               for name in ("encode.intra_batch", "decode.intra_batch")}
+    if stream.endswith("allintra"):
+        assert batches == {"encode.intra_batch": [8, 3],
+                           "decode.intra_batch": [8, 3]}
+        waits = [s for s in spans if s.name == "decode.wait"]
+        assert sum(s.counts["d2h_copies"] for s in waits) == n_batches
+    else:
+        assert batches == {"encode.intra_batch": [],
+                           "decode.intra_batch": []}
+
+
+BATCH_READERS = ("intra_launches_per_frame",
+                 "encode_intra_batch_ms_per_frame",
+                 "decode_intra_batch_ms_per_frame")
+
+
+@pytest.mark.parametrize("name", BATCH_READERS)
+def test_reader_of_the_all_intra_batches(name, tmp_path, k5_on_cpu,
+                                         monkeypatch):
+    """One segment of the all-intra cell (a batch of 8 4:2:0 I-frames, two
+    K5 launches): 0.25 launches a frame and positive times; None without
+    a recording, and None from a recording without the spans (a program
+    that has no batched all-intra path)."""
+    read = _reader(name)
+    with torch.profiler.profile(activities=CPU):
+        _round_trip("420_allintra", tmp_path, 8)
+    value = read(SimpleNamespace(trace=None))
+    if name == "intra_launches_per_frame":
+        assert value == 0.25
+    else:
+        assert value > 0
+    profiling.clear()
+    _round_trip("420_allintra", tmp_path, 8, tag="off")
+    assert read(SimpleNamespace(trace=None)) is None
+    monkeypatch.setattr(profiling, "recorded", _planted)
+    assert read(_traced(12)) is None

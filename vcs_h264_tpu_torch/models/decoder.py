@@ -2,13 +2,15 @@
 `vcs_h264_tpu/models/decoder.py`).
 
 Full GOPs (I + P + B frames as many as the pattern has) are decoded
-`gop_batch` at a time on the device; a tail GOP on its own, and an
-I-frame-only GOP straight from its stored frame. A GOP without residuals
-(with_residual=False) decodes from the compensation alone. With lossy
-intra the stored I-frame is already the reconstruction, so the intra
-payload is dropped before any upload: the P-frame decode never reads it.
-A 4:2:0 stream takes the same walk through `models/pipeline420.py`, and
-its I-frame-only GOP is emitted from its stored planes.
+`gop_batch` at a time on the device, and so are consecutive I-frame-only
+GOPs, whose frames are their stored I-frames, stacked once a batch; a tail
+GOP with P-frames is decoded on its own. Frames keep stream order where the
+kinds mix. A GOP without residuals (with_residual=False) decodes from the
+compensation alone. With lossy intra the stored I-frame is already the
+reconstruction, so the intra payload is dropped before any upload: the
+P-frame decode never reads it. A 4:2:0 stream takes the same walk through
+`models/pipeline420.py`, and a batch of I-frame-only GOPs is emitted from
+its stored planes in one call.
 
 `iter_frames` is the streaming core. A stream in host memory goes up
 through `models/host_path.py` (pinned staging, an upload stream); a GOP
@@ -22,6 +24,7 @@ encode).
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Iterator, List
 
 import numpy as np
@@ -84,45 +87,57 @@ class Decoder:
                 return pipeline420.decode_gop_batch_420(
                     batch, cfg, backend=self.backend)
 
-            def i_frame(gop):
-                one = self._stack([gop])
-                return pipeline420.emit_bgr(one.i_y, one.i_c)[0]
+            def i_frames(gops):
+                # the stored planes alone: the vectors of such a GOP are empty
+                one = self._stack([dataclasses.replace(g, mv=None)
+                                   for g in gops])
+                return pipeline420.emit_bgr(one.i_y, one.i_c)
         else:
             def decode_batch(batch):
                 return pipeline.decode_gop_batch(batch, cfg, self.backend)
 
-            def i_frame(gop):
-                return gop.i_frame
+            def i_frames(gops):
+                frames = [g.i_frame for g in gops]
+                if all(f.device.type == "cpu" for f in frames):
+                    return torch.stack(frames)      # nothing to upload
+                return torch.stack([f.to(self.device) for f in frames])
         buf: List = []
         downloads: List[Download] = []
 
-        def emit(planar: torch.Tensor) -> Iterator[np.ndarray]:
-            """Start the download of uint8 [N, 3, H, W] frames; yield the
-            frames of the download before it."""
+        def start(planar: torch.Tensor) -> None:
+            """Start the download of uint8 [N, 3, H, W] frames."""
             downloads.append(self._host.download(
                 planar.movedim(-3, -1).contiguous()))
-            if len(downloads) > 1:
+
+        def ready() -> Iterator[np.ndarray]:
+            """The frames of every download but the newest."""
+            while len(downloads) > 1:
                 yield from self._frames(downloads.pop(0))
 
         def flush():
+            """Decode `buf`, GOPs of one kind: full ones or I-frame-only."""
             if not buf:
                 return
-            out = decode_batch(self._stack(buf))
+            if buf[0].num_p:
+                start(decode_batch(self._stack(buf)).flatten(0, 1))
+            else:
+                with trace_annotation("decode.intra_batch", frames=len(buf)):
+                    start(i_frames(buf))
             buf.clear()
-            yield from emit(out.flatten(0, 1))
+            yield from ready()
 
         for gop in video.gops:
             gop = gop.without_intra_payload()
-            if gop.num_coded == cfg.gop_len and gop.num_p:
-                buf.append(gop)
-                if len(buf) >= self.gop_batch:
-                    yield from flush()
+            if gop.num_p and gop.num_coded != cfg.gop_len:
+                yield from flush()
+                start(decode_batch(self._stack([gop]))[0])
+                yield from ready()
                 continue
-            yield from flush()
-            if gop.num_p == 0:
-                yield from emit(i_frame(gop)[None])
-            else:
-                yield from emit(decode_batch(self._stack([gop]))[0])
+            if buf and bool(buf[0].num_p) != bool(gop.num_p):
+                yield from flush()
+            buf.append(gop)
+            if len(buf) >= self.gop_batch:
+                yield from flush()
         yield from flush()
         while downloads:
             yield from self._frames(downloads.pop(0))

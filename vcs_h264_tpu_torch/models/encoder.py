@@ -1,17 +1,19 @@
 """Host-side encoder orchestration (counterpart of
 `vcs_h264_tpu/models/encoder.py`).
 
-Frames are grouped into GOPs (frame n is an I-frame when n % gop_len == 0),
-full GOPs are encoded `gop_batch` at a time on the device, and a shorter
-tail GOP (fewer P-frames, or the I-frame alone) on its own. Under a B
-pattern a full GOP codes its B-frames; a tail GOP is coded all-P. With
-`intra_qstep > 0` each batch's I-frames are lossy intra-coded first (K5 on
-a GPU); the P-frames are then coded against that reconstruction, which is
-what the decoder has, and each GOP carries the intra payload.
+Frames are grouped into GOPs (frame n is an I-frame when n % gop_len == 0).
+Full GOPs are encoded `gop_batch` at a time on the device, and so are GOPs
+of an I-frame alone (every GOP of the all-intra pattern `("I",)`, or the
+last GOP of a P/B stream): one upload and one intra call a batch. A shorter
+tail GOP with P-frames is coded on its own. Under a B pattern a full GOP
+codes its B-frames; a tail GOP is coded all-P. With `intra_qstep > 0` each
+batch's I-frames are lossy intra-coded first (K5 on a GPU); the P-frames
+are then coded against that reconstruction, which is what the decoder has,
+and each GOP carries the intra payload.
 
 Under `chroma_420` the same grouping feeds `models/pipeline420.py`: each
 batch is ingested to Y and half-resolution chroma planes on the device and
-coded there, lossy intra included, and an I-frame-only GOP stores its
+coded there, lossy intra included; a batch of I-frame-only GOPs stores its
 ingested (or intra-reconstructed) planes.
 
 Frames reach the device through `models/host_path.py`: stacked into pinned
@@ -229,14 +231,30 @@ class Encoder:
                 self._upload([f for i in idxs for f in grouped[i][1]],
                              (len(idxs), self.cfg.gop_len - 1)))
 
+    def _batches(self, idxs: List[int]):
+        """`idxs` in runs of `gop_batch`."""
+        for start in range(0, len(idxs), self.gop_batch):
+            yield idxs[start:start + self.gop_batch]
+
+    def _no_mv(self, n: int, h: int, w: int) -> torch.Tensor:
+        """The vectors of `n` GOPs of an I-frame alone: int32 [n, 0, nbh,
+        nbw, 2]."""
+        bs = self.cfg.block_size
+        return torch.zeros((n, 0, h // bs, w // bs, 2), dtype=torch.int32,
+                           device=self.device)
+
     def _code_i_frames(self, i_b: torch.Tensor):
         """uint8 [B, 3, H, W] I-frames -> (the frames the P-frames reference,
-        per-GOP payload fields). Raw I-frames carry no payload; lossy intra
-        references its reconstruction and carries qcoef, modes, escape."""
+        per-GOP payload fields). Raw I-frames carry no payload; lossy intra,
+        the stage `intra_i_encode`, references its reconstruction and
+        carries qcoef, modes, escape."""
         if not self.cfg.intra_qstep:
             return i_b, [{} for _ in range(i_b.shape[0])]
-        payload, recon = intra_codec.encode_intra_frames_lossy_batch(
-            i_b, self.cfg.intra_qstep, self.backend)
+        with self._stage("intra_i_encode") as box:
+            payload, recon = intra_codec.encode_intra_frames_lossy_batch(
+                i_b, self.cfg.intra_qstep, self.backend)
+            if box is not None:
+                box["result"] = recon
         return recon, [dict(i_qcoef=payload.qcoef[b], i_modes=payload.modes[b],
                             i_escape=payload.escape[b])
                        for b in range(i_b.shape[0])]
@@ -287,74 +305,66 @@ class Encoder:
             else:
                 pending.append(idx)
 
-        # full GOPs are batched (with their B-frames under a B pattern); a
-        # shorter tail GOP, coded all-P, or any GOP with no P-frame (an
-        # all-I pattern), is coded on its own
-        full = [i for i in pending
-                if len(grouped[i][1]) == cfg.gop_len - 1 > 0]
-        tail = [i for i in pending if i not in full]
-        if cfg.chroma_420:
-            self._encode_420(grouped, full, tail, encoded, ckpt_path,
-                             fingerprint)
-        else:
-            self._encode_full_res(grouped, full, tail, encoded, ckpt_path,
-                                  fingerprint)
+        # full GOPs (with their B-frames under a B pattern) and GOPs of an
+        # I-frame alone are batched, each kind apart; a shorter tail GOP
+        # with P-frames, coded all-P, is coded on its own
+        full, intra, tail = [], [], []
+        for i in pending:
+            n_other = len(grouped[i][1])
+            (intra if not n_other else
+             full if n_other == cfg.gop_len - 1 else tail).append(i)
+        encode = self._encode_420 if cfg.chroma_420 else self._encode_full_res
+        encode(grouped, full, intra, tail, encoded, ckpt_path, fingerprint)
         video = EncodedVideo(config=cfg, height=h, width=w, fps=fps,
                              num_frames=len(frames), gops=encoded)
         self._log_summary(len(frames), len(encoded),
                           time.perf_counter() - t_start)
         return video
 
-    def _encode_full_res(self, grouped, full, tail, encoded, ckpt_path,
-                         fingerprint) -> None:
+    def _encode_full_res(self, grouped, full, intra, tail, encoded,
+                         ckpt_path, fingerprint) -> None:
         cfg = self.cfg
-        for start in range(0, len(full), self.gop_batch):
-            idxs = full[start:start + self.gop_batch]
+
+        def finish(idx, gop):
+            encoded[idx] = gop
+            self._log_gop(idx, gop)
+            if ckpt_path(idx):
+                with self._stage("checkpoint_write"):
+                    _save_gop_npz(ckpt_path(idx), gop, cfg.with_dct,
+                                  fingerprint)
+
+        for idxs in self._batches(full):
             i_b, p_b = self._upload_batch(grouped, idxs)
-            payloads = [{} for _ in idxs]
-            if cfg.intra_qstep:
-                with self._stage("intra_i_encode") as box:
-                    i_b, payloads = self._code_i_frames(i_b)
-                    if box is not None:
-                        box["result"] = i_b
+            i_b, payloads = self._code_i_frames(i_b)
             with self._stage("encode_gop_batch") as box:
                 out = pipeline.encode_gop_batch(i_b, p_b, cfg, self.backend)
                 if box is not None:
                     box["result"] = out
             for bi, idx in enumerate(idxs):
-                gop = dataclasses.replace(out.select(bi), **payloads[bi])
-                encoded[idx] = gop
-                self._log_gop(idx, gop)
-                if ckpt_path(idx):
-                    with self._stage("checkpoint_write"):
-                        _save_gop_npz(ckpt_path(idx), gop, cfg.with_dct,
-                                      fingerprint)
+                finish(idx, dataclasses.replace(out.select(bi),
+                                                **payloads[bi]))
+
+        for idxs in self._batches(intra):
+            with trace_annotation("encode.intra_batch", frames=len(idxs)):
+                i_b, payloads = self._code_i_frames(self._upload(
+                    [grouped[i][0] for i in idxs], (len(idxs),)))
+                mv = self._no_mv(len(idxs), *i_b.shape[-2:])
+            for bi, idx in enumerate(idxs):
+                finish(idx, EncodedGOP(i_frame=i_b[bi], mv=mv[bi],
+                                       residuals=None, **payloads[bi]))
 
         for idx in tail:
             i_f, p_f = grouped[idx]
             i_b, payloads = self._code_i_frames(self._upload([i_f], (1,)))
-            if not len(p_f):
-                h, w = i_f.shape[:2]
-                gop = EncodedGOP(
-                    i_frame=i_b[0],
-                    mv=torch.zeros((0, h // cfg.block_size,
-                                    w // cfg.block_size, 2),
-                                   dtype=torch.int32, device=self.device),
-                    residuals=None)
-            else:
-                gop = pipeline.encode_gop(
-                    i_b[0], self._upload(p_f, (len(p_f),)), cfg,
-                    self.backend)
-            gop = dataclasses.replace(gop, **payloads[0])
-            encoded[idx] = gop
-            self._log_gop(idx, gop)
-            if ckpt_path(idx):
-                _save_gop_npz(ckpt_path(idx), gop, cfg.with_dct, fingerprint)
+            gop = pipeline.encode_gop(i_b[0], self._upload(p_f, (len(p_f),)),
+                                      cfg, self.backend)
+            finish(idx, dataclasses.replace(gop, **payloads[0]))
 
-    def _encode_420(self, grouped, full, tail, encoded, ckpt_path,
+    def _encode_420(self, grouped, full, intra, tail, encoded, ckpt_path,
                     fingerprint) -> None:
-        """4:2:0: full GOPs batched, a shorter tail GOP as a batch of one,
-        an I-frame-only GOP from its ingested planes."""
+        """4:2:0: full GOPs batched; I-frame-only GOPs batched, each the
+        batch's ingested (or intra-reconstructed) planes; a shorter tail GOP
+        as a batch of one."""
         cfg = self.cfg
 
         def finish(idx, gop):
@@ -363,8 +373,7 @@ class Encoder:
             if ckpt_path(idx):
                 _save_gop_npz_420(ckpt_path(idx), gop, fingerprint)
 
-        for start in range(0, len(full), self.gop_batch):
-            idxs = full[start:start + self.gop_batch]
+        for idxs in self._batches(full):
             i_b, p_b = self._upload_batch(grouped, idxs)
             with self._stage("encode_gop_batch_420") as box:
                 out = pipeline420.encode_gop_batch_420(i_b, p_b, cfg,
@@ -374,26 +383,30 @@ class Encoder:
             for bi, idx in enumerate(idxs):
                 finish(idx, out.select(bi))
 
+        for idxs in self._batches(intra):
+            with trace_annotation("encode.intra_batch", frames=len(idxs)):
+                y, c = pipeline420.ingest_420(self._upload(
+                    [grouped[i][0] for i in idxs], (len(idxs),)))
+                payload = {}
+                if cfg.intra_qstep:
+                    (y, c), payload = pipeline420.encode_intra_420(
+                        y, c, cfg.intra_qstep, self.backend)
+                out = EncodedGOP420(
+                    i_y=y, i_c=c, mv=self._no_mv(len(idxs), *y.shape[-2:]),
+                    res_y=None, res_c=None, **payload)
+            for bi, idx in enumerate(idxs):
+                finish(idx, out.select(bi))
+
         for idx in tail:
             i_f, p_f = grouped[idx]
-            i_b = self._upload([i_f], (1,))
-            if len(p_f):
-                finish(idx, pipeline420.encode_gop_batch_420(
-                    i_b, self._upload(p_f, (1, len(p_f))), cfg,
-                    self.backend).select(0))
-                continue
-            h, w = i_f.shape[:2]
-            y, c = pipeline420.ingest_420(i_b)
-            payload = {}
-            if cfg.intra_qstep:
-                (y, c), payload = pipeline420.encode_intra_420(
-                    y, c, cfg.intra_qstep, self.backend)
-            finish(idx, EncodedGOP420(
-                i_y=y, i_c=c,
-                mv=torch.zeros((1, 0, h // cfg.block_size,
-                                w // cfg.block_size, 2), dtype=torch.int32,
-                               device=self.device),
-                res_y=None, res_c=None, **payload).select(0))
+            i_b, p_b = (self._upload([i_f], (1,)),
+                        self._upload(p_f, (1, len(p_f))))
+            with self._stage("encode_gop_batch_420") as box:
+                out = pipeline420.encode_gop_batch_420(i_b, p_b, cfg,
+                                                       self.backend)
+                if box is not None:
+                    box["result"] = out
+            finish(idx, out.select(0))
 
     def _log_gop(self, idx: int, gop) -> None:
         """A `gop` record: the share of blocks with a zero vector in every

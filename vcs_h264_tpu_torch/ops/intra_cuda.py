@@ -12,8 +12,11 @@ from __future__ import annotations
 import torch
 
 from vcs_h264_tpu_torch.ops import _build
+from vcs_h264_tpu_torch.utils.profiling import add_counts
 
 # Launches of each kernel of this module, counted where the kernel launches.
+# K5's launches are also the count `intra_launches` of the innermost open
+# span, while spans are recorded.
 LAUNCHES = {"intra_encode": 0, "intra_decode": 0}
 
 _SHMEM_MAX = 232448           # dynamic shared memory a block may opt into
@@ -95,6 +98,7 @@ def intra_encode(planes: torch.Tensor, qstep: int):
                                    *quant_magic(qstep), stream)
     _build.check(err, name)
     LAUNCHES[name] += 1
+    add_counts(intra_launches=1)
     return qcoef, modes, escape, recon
 
 

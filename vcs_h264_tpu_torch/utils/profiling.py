@@ -16,9 +16,11 @@ closed, to the process's recording (`recorded()`): its name, its length on
 readers sum. Nothing writes the recording anywhere; a reader takes it at
 the end of a run.
 
-The counts in use: `frames` on the `save_vcs` root, and `d2h_copies` and
-`d2h_bytes` (tensors brought to host memory and their bytes) where the
-copies are made.
+The counts in use: `frames` on the `save_vcs` root and on the batched
+all-intra spans `encode.intra_batch` and `decode.intra_batch`; `d2h_copies`
+and `d2h_bytes` (tensors brought to host memory and their bytes) where the
+copies are made; `intra_launches`, one a K5 launch
+(`ops/intra_cuda.py`).
 """
 
 from __future__ import annotations
