@@ -63,8 +63,11 @@ package. Phases, each of which exits nonzero on failure:
         24: K5 qcoef, modes, escape and recon identical to the plain
         version; K6 lossy on K5's payload identical to K5's recon; K6
         lossless on the plain lossless codec's residuals identical to the
-        source planes; then K5/K6 on 3 planes of 1920x1080, identical to
-        the plain versions, timed once (no path below runs that size);
+        source planes; then K5 on 8 planes and 1 of 1920 columns and 257,
+        268, 270, 272 and 282 block rows (its tall form) and 283 (the
+        direct form past it), identical to the plain version, K6 on its
+        payload identical to its recon, timed in us a step
+        (`intra_tall_phase`);
      e. K1 at edge shapes, both of its forms: bs 2, 4, 6, 8 and 16, C 1, 2
         and 3, one block row, widths that are not multiples of 32 or of 4
         and widths of 16, 48 and 1296 (the fast form), a row longer than a
@@ -414,12 +417,14 @@ def read_counts() -> dict:
 
 EARLIER = None      # ctypes library of an earlier build of the kernels (--earlier)
 # which of today's interfaces the earlier sources have, each by a word of
-# its source: vcs_intra_encode with the quantiser's magic and shift,
+# its source: vcs_intra_encode with the quantiser's magic and shift, and
+# with the form chosen by its caller (its tall form's kTallRowWarps),
 # vcs_intra_decode with a scratch plane, vcs_fused_p_decode and
 # vcs_fused_p_encode with their tables in host memory, vcs_compensate with
 # the form chosen by its caller, the bare-plane pairs (vcs_plane_* and
 # vcs_c420_*) as strips of dct_strip.cuh with their tables in host memory
-EARLIER_HAS = {"magic": False, "scratch": False, "tabs_host": False,
+EARLIER_HAS = {"magic": False, "kTallRowWarps": False, "scratch": False,
+               "tabs_host": False,
                "enc_tabs_host": False, "int form": False,
                "dct_strip.cuh": False}
 EARLIER_SOURCES = ("motion_sad.cu", "intra_wavefront.cu", "inter_fused.cu",
@@ -449,6 +454,7 @@ def load_earlier(src_dir: str) -> None:
     lib = ctypes.CDLL(str(out))
     p, i = ctypes.c_void_p, ctypes.c_int
     for key, name in (("magic", "intra_wavefront.cu"),
+                      ("kTallRowWarps", "intra_wavefront.cu"),
                       ("scratch", "intra_wavefront.cu"),
                       ("tabs_host", "inter_fused.cu"),
                       ("enc_tabs_host", "inter_fused.cu"),
@@ -462,9 +468,11 @@ def load_earlier(src_dir: str) -> None:
         lib.vcs_sad_search.argtypes = list(
             _build.SIGNATURES["vcs_sad_search"])
     if hasattr(lib, "vcs_intra_encode"):
+        enc = list(_build.SIGNATURES["vcs_intra_encode"])
         lib.vcs_intra_encode.argtypes = (
-            list(_build.SIGNATURES["vcs_intra_encode"])
-            if EARLIER_HAS["magic"] else [p, p, p, p, p, i, i, i, i, p])
+            enc if EARLIER_HAS["kTallRowWarps"]
+            else enc[:-2] + enc[-1:] if EARLIER_HAS["magic"]
+            else [p, p, p, p, p, i, i, i, i, p])
         lib.vcs_intra_decode.argtypes = (
             list(_build.SIGNATURES["vcs_intra_decode"])
             if EARLIER_HAS["scratch"] else [p, p, p, p, i, i, i, i, i, p])
@@ -654,6 +662,8 @@ def earlier_encode_ms(planes, qstep: int):
     stream = torch.cuda.current_stream().cuda_stream
     from vcs_h264_tpu_torch.ops import intra_cuda
     magic = intra_cuda.quant_magic(qstep) if EARLIER_HAS["magic"] else ()
+    if EARLIER_HAS["kTallRowWarps"]:
+        magic += (intra_cuda.encode_form(h),)
 
     def run():
         err = EARLIER.vcs_intra_encode(
@@ -1177,7 +1187,7 @@ def intra_edge_phase() -> None:
     if n_esc == 0 or n_esc_l == 0:
         fail("the escape planes did not escape")
     for n, h, w, what in (
-            (1, TALL_H, 8, "more block rows than a CTA of K5 (256) or K6 "
+            (1, TALL_H, 8, "more block rows than a CTA of K5 (282) or K6 "
              "(1024) has threads"),
             (40, 264, 8, "40 planes of 66 block rows, a partly filled "
              "third warp")):
@@ -1261,43 +1271,67 @@ def decode_edge_phase() -> None:
           "all-escape planes, modes -3 to 12")
 
 
-def intra_1080_phase(card: str) -> dict:
-    """K5 and K6 on 3 planes of 1080x1920 at qstep 24, a shape no path of
-    this script drives: identical to their plain versions, timed once. 270
-    block rows: K5 loops over its rows there, K6 takes its fast form."""
+def smooth_planes(rng, n: int, h: int, w: int):
+    """n uint8 planes [n, h, w] on the card: coarse noise scaled up
+    bicubically, plus +-2 of noise, so that every mode wins somewhere."""
+    import torch
+    coarse = torch.from_numpy(rng.uniform(0, 255, (1, n, h // 16 + 2,
+                                                   w // 16 + 2)))
+    return (torch.nn.functional.interpolate(
+        coarse, size=(h, w), mode="bicubic", align_corners=False)[0]
+        + torch.from_numpy(rng.integers(-2, 3, (n, h, w)))
+        ).clamp(0, 255).round().to(torch.uint8).cuda()
+
+
+def intra_tall_phase(card: str) -> None:
+    """Phase 3d, K5 on planes of 1920 columns past its staged form's 256
+    block rows, a shape no path of this script drives: 257, 268 (1072 rows,
+    the 1080p cells' luma), 270 (1080 rows), 272 (1088 rows, 1080p in
+    16-pixel macroblocks) and the tall form's last block rows (282), each
+    in the tall form, and one row past it in the direct form; 8 planes and
+    the first of them alone, at qstep 24. K5's form is the one
+    `intra_cuda.encode_form` names, its qcoef, modes, escape and recon are
+    identical to the plain version's, and K6 on its payload returns its
+    recon. Each timed, with --earlier beside the earlier build, in us a
+    step."""
+    import functools
     import torch
     from vcs_h264_tpu_torch.ops import intra, intra_cuda
 
-    h, w = 1080, 1920
+    w, n = 1920, 8
+    tall = intra_cuda.TALL_ENCODE_ROWS
     rng = np.random.default_rng(10)
-    coarse = torch.from_numpy(rng.uniform(0, 255, (1, 3, h // 16 + 2,
-                                                   w // 16 + 2)))
-    planes = (torch.nn.functional.interpolate(
-        coarse, size=(h, w), mode="bicubic", align_corners=False)[0]
-        + torch.from_numpy(rng.integers(-2, 3, (3, h, w)))
-        ).clamp(0, 255).round().to(torch.uint8).cuda()
-    k5, _, _ = check_intra(planes, QSTEP, "3 planes 1920x1080", full=False)
-    want = intra.decode_planes_plain(*k5[:3], QSTEP, True)
-    if not torch.equal(intra_cuda.intra_decode(*k5[:3], QSTEP, True), want):
-        fail("K6 differs from the plain version at 1920x1080")
-    steps = 2 * (h // 4 - 1) + w // 4
-    out = dict(
-        steps=steps,
-        encode_ms=kernel_ms(lambda: intra_cuda.intra_encode(planes, QSTEP)),
-        decode_ms=kernel_ms(lambda: intra_cuda.intra_decode(*k5[:3], QSTEP,
-                                                            True)),
-        earlier_decode_ms=earlier_decode_ms(*k5[:3], QSTEP, True,
-                                            "1920x1080"))
-    earlier = out["earlier_decode_ms"]
-    print(f"[time 1080p intra] 3 planes 1920x1080, qstep {QSTEP}, identical "
-          f"to the plain versions: K5 {out['encode_ms']:.4f} ms, "
-          f"{out['encode_ms'] / steps * 1e3:.3f} us a step; K6 "
-          f"{out['decode_ms']:.4f} ms, "
-          f"{out['decode_ms'] / steps * 1e3:.3f} us a step"
-          + ("" if earlier is None
-             else f", the earlier build's K6 {earlier:.4f} ms")
-          + f"; {steps} steps ({card})")
-    return out
+    for nbh in (257, 268, 270, 272, tall, tall + 1):
+        h = 4 * nbh
+        form = intra_cuda.encode_form(h)
+        if form != (9 if nbh <= tall else 0):
+            fail(f"K5's form at {nbh} block rows is {form} row warps")
+        planes = smooth_planes(rng, n, h, w)
+        want = intra.intra_encode4x4_lossy_plain(planes, QSTEP)
+        steps = 2 * (nbh - 1) + w // 4
+        for k in (n, 1):
+            sub = planes[:k]
+            what = f"{k}x{h}x{w}, {nbh} block rows"
+            k5 = intra_cuda.intra_encode(sub, QSTEP)
+            for name, a, b in zip(("qcoef", "modes", "escape", "recon"), k5,
+                                  want):
+                if a.dtype != b.dtype or not torch.equal(a, b[:k]):
+                    fail(f"K5 {name} differs from the plain version ({what})")
+            decode = functools.partial(intra_cuda.intra_decode, *k5[:3], QSTEP,
+                                       True)
+            if not torch.equal(decode(), k5[3]):
+                fail(f"K6 lossy decode differs from K5's recon ({what})")
+            enc_ms = kernel_ms(functools.partial(intra_cuda.intra_encode, sub,
+                                                 QSTEP))
+            dec_ms = kernel_ms(decode)
+            earlier = earlier_encode_ms(sub, QSTEP)
+            print(f"[time tall intra {what}] {'tall' if form else 'direct'}"
+                  f" form, identical to the plain version, K6 to K5's recon: "
+                  f"K5 {enc_ms:.4f} ms, {enc_ms / steps * 1e3:.3f} us a step"
+                  + ("" if earlier is None else
+                     f" (the earlier build {earlier:.4f} ms, "
+                     f"{earlier / steps * 1e3:.3f} us a step)")
+                  + f"; K6 {dec_ms:.4f} ms; {steps} steps ({card})")
 
 
 def intra_kernel_phase(planes, card: str, plain_reps: int = 3):
@@ -3668,7 +3702,7 @@ def main() -> int:
     kernels.update(intra_kernel_phase(
         torch.from_numpy(i_frames).cuda().permute(0, 3, 1, 2)
         .reshape(-1, H, W).contiguous(), card))             # [24, H, W]
-    intra_1080_phase(card)
+    intra_tall_phase(card)
     kernels.update(compensate_kernel_phase(frames, card))
     kernels.update(plane_kernel_phase(frames, card))
     legacy_vcs_phase(card)

@@ -6,7 +6,9 @@ on, held on the CPU with numpy from a seed:
     operation for operation in uint32;
   * K5 (`csrc/intra_wavefront.cu`) divides by multiplication with the magic
     number of `ops.intra_cuda.quant_magic`, the routine the wrapper itself
-    calls at every launch;
+    calls at every launch, and takes the form `ops.intra_cuda.encode_form`
+    names from the plane's height: the staged form's row warps, the tall
+    form's or the direct form, as the source's constants bound them;
   * K2 decides "static" before it searches, so the vectors may not depend on
     the candidate SADs of a static block;
   * K6 (`csrc/intra_wavefront.cu`, the clipped form) predicts with K5's
@@ -36,6 +38,9 @@ on, held on the CPU with numpy from a seed:
     CTA, held against the references in tests/test_torch_c420.py.
 """
 
+import re
+from pathlib import Path
+
 import numpy as np
 import jax.numpy as jnp
 import pytest
@@ -47,7 +52,7 @@ torch.set_num_threads(2)
 from vcs_h264_tpu.ops import motion as jmotion  # noqa: E402
 
 from vcs_h264_tpu_torch.ops import dct, inter_cuda, intra, motion  # noqa: E402
-from vcs_h264_tpu_torch.ops import motion_cuda, quant  # noqa: E402
+from vcs_h264_tpu_torch.ops import intra_cuda, motion_cuda, quant  # noqa: E402
 from vcs_h264_tpu_torch.sass_report import count_listing  # noqa: E402
 from vcs_h264_tpu_torch.ops.intra_cuda import quant_magic  # noqa: E402
 
@@ -180,6 +185,50 @@ def test_magic_division_is_exact_below_two_to_the_25(rng, qstep):
                        ).astype(np.uint64)
     got = (n * np.uint64(magic)) >> np.uint64(32 + shift)
     np.testing.assert_array_equal(got, n // np.uint64(800 * qstep))
+
+
+# --- K5: the form by block rows ----------------------------------------------
+
+WAVEFRONT_SRC = (Path(intra_cuda.__file__).resolve().parents[1] / "csrc"
+                 / "intra_wavefront.cu")
+
+
+def _source_constants():
+    """The `constexpr int` constants of csrc/intra_wavefront.cu, evaluated
+    in order with C's integer division."""
+    out = {}
+    for name, expr in re.findall(r"constexpr int (\w+) = ([^;]+);",
+                                 WAVEFRONT_SRC.read_text()):
+        out[name] = eval(expr.replace("/", "//"), {"min": min}, dict(out))
+    return out
+
+
+@pytest.mark.parametrize("nbh,row_warps", [
+    (1, 1), (180, 6), (256, 8), (257, 9), (268, 9), (272, 9),
+    (intra_cuda.TALL_ENCODE_ROWS, 9), (intra_cuda.TALL_ENCODE_ROWS + 1, 0)])
+def test_k5_form_by_block_rows(nbh, row_warps):
+    """Up to 256 block rows the staged form with a thread per block row in
+    ceil(nbh / 32) row warps, as before the tall form; 257 to 282 (1072,
+    1080 and 1088 pixel rows among them) the tall form's 9; past it the
+    direct form, 0."""
+    assert intra_cuda.encode_form(4 * nbh) == row_warps
+    assert intra_cuda.encode_form(4 * nbh + 3) == row_warps
+
+
+def test_k5_forms_match_the_source():
+    """The rule's limits are the launcher's: the staged form's row warps in
+    a CTA of kEncThreads, the tall form's kTallRowWarps and kTallRows, the
+    block rows whose carry and staged outputs fit in kSmemMax bytes, which
+    is the wrappers' shared memory; a tall plane's rows fit its threads."""
+    c = _source_constants()
+    assert intra_cuda.STAGED_ENCODE_ROWS == 32 * c["kEncRowWarps"] == 256
+    assert intra_cuda.TALL_ENCODE_ROWS == c["kTallRows"] == 282
+    assert c["kTallRows"] <= 32 * c["kTallRowWarps"]
+    assert c["kSmemMax"] == intra_cuda._SHMEM_MAX
+    assert c["kTallRows"] * 4 * (c["kEncRowWords"] + c["kStageWords"]) \
+        <= c["kSmemMax"]
+    assert intra_cuda.encode_form(4 * c["kTallRows"]) == c["kTallRowWarps"]
+    assert c["kTallThreads"] == 32 * (c["kTallRowWarps"] + c["kFlushWarps"])
 
 
 # --- K2: static first ---------------------------------------------------------
@@ -469,9 +518,11 @@ def flush_schedule(nbh, nbw, t, flusher):
 @pytest.mark.parametrize("nbh,nbw", [
     (1, 1), (1, 2), (2, 1), (2, 2), (1, 8), (1, 9), (3, 7), (5, 9), (2, 16),
     (7, 24), (12, 2), (40, 3), (66, 2), (33, 17), (90, 160), (180, 320),
-    (270, 480), (288, 2), (288, 40)])
+    (268, 480), (270, 480), (282, 480), (288, 2), (288, 40)])
 def test_flush_writes_every_block_once_before_it_is_overwritten(nbh, nbw):
-    """Simulates the clipped decode's steps: row threads stage block (bi,
+    """Simulates the clipped decode's steps, and K5's (268 and 282 block
+    rows: its tall form at the 1080p cells' luma and at its last row
+    count): row threads stage block (bi,
     t - 2 bi) in one of their row's two group tiles, the flush warps write
     groups out in the same step without a barrier between them. Every block
     must leave exactly once, as the block it is, and no tile may be written

@@ -11,9 +11,10 @@ recording give per-frame values, and None
 without a `save_vcs` root, and the two readers of the copies None unless
 the trace holds as many copies. K5's launches, with its wrapper standing
 in for the plain version on the CPU, are counted as `intra_launches` on
-every path that launches it, and batches of all-intra GOPs are the spans
-`encode.intra_batch` and `decode.intra_batch`, which the benchmark's three
-readers of the all-intra cell read."""
+every path that launches it, and those in K5's direct form, on planes past
+its tall form, as `intra_direct_launches`; batches of all-intra GOPs are
+the spans `encode.intra_batch` and `decode.intra_batch`, which the
+benchmark's readers of the all-intra cell read."""
 
 import collections
 import concurrent.futures
@@ -385,13 +386,17 @@ def k5_on_cpu(monkeypatch):
     """K5's wrapper (`ops/intra_cuda.py` `intra_encode`) in the plain
     version's place on the CPU, the launch the plain version written through
     the pointers the wrapper passes, so that the wrapper counts its launches
-    as on a card. -> the wrapper's count of launches."""
+    as on a card; `Lib.forms` keeps the row warps each launch passed. ->
+    the wrapper's count of launches."""
     plain = intra.intra_encode4x4_lossy_plain
 
     class Lib:
+        forms = []
+
         @staticmethod
         def vcs_intra_encode(src, qcoef, modes, escape, recon, n, h, w,
-                             qstep, *magic_and_stream):
+                             qstep, magic, shift, row_warps, stream):
+            Lib.forms.append(row_warps)
             planes = np.ctypeslib.as_array(
                 ctypes.cast(src, ctypes.POINTER(ctypes.c_uint8)),
                 shape=(n, h, w))
@@ -431,6 +436,8 @@ def test_k5_launches_are_counted_on_every_path(stream, tmp_path, k5_on_cpu):
     assert k5_on_cpu["intra_encode"] == n_batches * per_batch
     assert sum(s.counts.get("intra_launches", 0) for s in spans) == (
         n_batches * per_batch)
+    assert sum(s.counts.get("intra_direct_launches", -1) for s in spans
+               if "intra_launches" in s.counts) == 0
     batches = {name: [s.counts["frames"] for s in spans if s.name == name]
                for name in ("encode.intra_batch", "decode.intra_batch")}
     if stream.endswith("allintra"):
@@ -443,7 +450,26 @@ def test_k5_launches_are_counted_on_every_path(stream, tmp_path, k5_on_cpu):
                            "decode.intra_batch": []}
 
 
+@pytest.mark.parametrize("nbh", [1, 256, 257, intra_cuda.TALL_ENCODE_ROWS,
+                                 intra_cuda.TALL_ENCODE_ROWS + 1])
+def test_direct_launches_are_counted_past_the_tall_form(nbh, k5_on_cpu):
+    """A K5 launch passes the row warps of `encode_form` and counts 1 in
+    `intra_direct_launches` of the innermost open span only on planes past
+    the tall form's block rows (the direct form), 0 on every other."""
+    direct = nbh > intra_cuda.TALL_ENCODE_ROWS
+    planes = torch.from_numpy(np.random.default_rng(nbh).integers(
+        0, 256, (1, 4 * nbh, 4)).astype(np.uint8))
+    with torch.profiler.profile(activities=CPU):
+        with profiling.trace_annotation("k5"):
+            intra_cuda.intra_encode(planes, 24)
+    assert intra_cuda._build.load_library().forms == [
+        0 if direct else intra_cuda.encode_form(4 * nbh)]
+    assert [s.counts for s in profiling.recorded()] == [
+        {"intra_launches": 1, "intra_direct_launches": int(direct)}]
+
+
 BATCH_READERS = ("intra_launches_per_frame",
+                 "intra_direct_launches_per_frame",
                  "encode_intra_batch_ms_per_frame",
                  "decode_intra_batch_ms_per_frame")
 
@@ -452,15 +478,18 @@ BATCH_READERS = ("intra_launches_per_frame",
 def test_reader_of_the_all_intra_batches(name, tmp_path, k5_on_cpu,
                                          monkeypatch):
     """One segment of the all-intra cell (a batch of 8 4:2:0 I-frames, two
-    K5 launches): 0.25 launches a frame and positive times; None without
-    a recording, and None from a recording without the spans (a program
-    that has no batched all-intra path)."""
+    K5 launches, neither in the direct form): 0.25 launches a frame, 0.0
+    direct launches and positive times; None without a recording, and None
+    from a recording without the spans or counts (a program that has no
+    batched all-intra path, or counts no direct launch)."""
     read = _reader(name)
     with torch.profiler.profile(activities=CPU):
         _round_trip("420_allintra", tmp_path, 8)
     value = read(SimpleNamespace(trace=None))
     if name == "intra_launches_per_frame":
         assert value == 0.25
+    elif name == "intra_direct_launches_per_frame":
+        assert value == 0.0
     else:
         assert value > 0
     profiling.clear()

@@ -70,6 +70,24 @@
 //     out whole: a pixel row's 32 bytes of recon and 64 of qcoef side by
 //     side, a few sectors an instruction. Ten stores a block to lines of
 //     their own had cost a third of the kernel's time.
+// Those two points need a thread per block row, and the launcher
+// (vcs_intra_encode) takes K5's form from its caller, who chooses it from the
+// plane's height alone (ops/intra_cuda.py:encode_form):
+//   * the staged form, up to kEncRowWarps row warps (256 block rows: 720p,
+//     4:2:0 chroma at 1080p) and the flush warps, a thread may hold 204
+//     registers: intra_encode_kernel, 1.05 us a step at 720p;
+//   * the tall form, kTallRowWarps row warps and the flush warps, 352
+//     threads and 184 registers (the body needs about 110), up to kTallRows
+//     block rows, where a row's carry and staged outputs fill shared memory:
+//     intra_encode_kernel_tall, the same body, for 1072, 1080 and 1088-row
+//     luma planes, 1.31 us a step on one plane of 1072 x 1920 and 1.69 on
+//     eight, against 1.98 and 2.12 in the direct form. At that width a step
+//     costs more than at 720p even on one plane, and more again once four or
+//     more planes run: three, four or six flush warps, and the original
+//     pixels loaded two to four steps ahead, were each no faster;
+//   * the direct form past kTallRows block rows (4K): intra_encode_kernel,
+//     each thread loops over its rows, loads on the chain and stores a
+//     block's outputs itself.
 // A 24-plane batch still fills only 24 of the 132 SMs. Cutting a plane into
 // slices of block rows over several CTAs, the carry handed down through
 // device memory with a count per slice, gave identical results and no gain
@@ -87,9 +105,15 @@ constexpr int kRowInts = 20;     // K6, int form: shared ints per block row, rin
 constexpr int kEncRowWords = 5;  // K5: packed words per block row, ring 4 and left column 1
 constexpr int kEncThreads = 320; // K5: most threads of a CTA; a thread may hold 204 registers
 constexpr int kFlushWarps = 2;   // K5: warps of a CTA that write the staged outputs out
+constexpr int kEncRowWarps = kEncThreads / 32 - kFlushWarps;     // K5, staged form: 256 block rows
+constexpr int kTallRowWarps = 9;                                 // K5, tall form: row warps
+constexpr int kTallThreads = 32 * (kTallRowWarps + kFlushWarps); // 352: 184 registers a thread
 constexpr int kGroup = 8;        // K5: blocks of a row whose outputs are written out together
 constexpr int kTileWords = 12 * kGroup + 4;      // K5: a staged group, see stage_block
 constexpr int kStageWords = 2 * kTileWords + 1;  // K5: two groups a block row; odd, so rows spread over the banks
+constexpr int kSmemMax = 232448;                 // dynamic shared memory a CTA may opt into
+constexpr int kTallRows = kSmemMax / (4 * (kEncRowWords + kStageWords));  // 282 block rows
+static_assert(kTallRows <= 32 * kTallRowWarps, "a tall plane's rows outnumber its row threads");
 
 struct Neighbors {
   int u[4], l[4], ur[4], ul;
@@ -492,15 +516,18 @@ __device__ __forceinline__ void flush_group(const uint32_t* tile, int n, int lan
   if (lane >= kGroup && lane - kGroup < n) escape_b[lane - kGroup] = flags[lane];
 }
 
-// grid (N). Dynamic shared memory: nbh * kEncRowWords words of carry and,
-// with row_warps > 0, nbh * kStageWords words of staged outputs.
-// row_warps > 0: block = (row_warps + kFlushWarps) warps, nbh <= 32 *
-// row_warps, a thread of the first warps per block row. row_warps == 0: any
-// block, each thread loops over block rows.
-__global__ void __launch_bounds__(kEncThreads) intra_encode_kernel(
-    const uint8_t* __restrict__ planes, int16_t* __restrict__ qcoef, int8_t* __restrict__ modes,
-    uint8_t* __restrict__ escape, uint8_t* __restrict__ recon, int H, int W, Quantiser q,
-    int row_warps) {
+// K5 on plane blockIdx.x. Dynamic shared memory: nbh * kEncRowWords words
+// of carry and, with row_warps > 0, nbh * kStageWords words of staged
+// outputs. row_warps > 0, the staged forms: block = (row_warps +
+// kFlushWarps) warps, nbh <= 32 * row_warps, a thread of the first warps per
+// block row. row_warps == 0, the direct form: any block, each thread loops
+// over block rows.
+__device__ __forceinline__ void encode_planes(const uint8_t* __restrict__ planes,
+                                              int16_t* __restrict__ qcoef,
+                                              int8_t* __restrict__ modes,
+                                              uint8_t* __restrict__ escape,
+                                              uint8_t* __restrict__ recon, int H, int W,
+                                              const Quantiser& q, int row_warps) {
   extern __shared__ int carry[];
   const int nbh = H / 4, nbw = W / 4;
   uint32_t* ring = reinterpret_cast<uint32_t*>(carry);
@@ -600,6 +627,24 @@ __global__ void __launch_bounds__(kEncThreads) intra_encode_kernel(
     }
     __syncthreads();
   }
+}
+
+// grid (N), the staged form with at most kEncRowWarps row warps, or the
+// direct form; see encode_planes.
+__global__ void __launch_bounds__(kEncThreads) intra_encode_kernel(
+    const uint8_t* __restrict__ planes, int16_t* __restrict__ qcoef, int8_t* __restrict__ modes,
+    uint8_t* __restrict__ escape, uint8_t* __restrict__ recon, int H, int W, Quantiser q,
+    int row_warps) {
+  encode_planes(planes, qcoef, modes, escape, recon, H, W, q, row_warps);
+}
+
+// grid (N), the tall form: the staged form with kTallRowWarps row warps, for
+// the planes of 32 kEncRowWarps + 1 to kTallRows block rows (1080p luma); a
+// thread may hold 184 registers.
+__global__ void __launch_bounds__(kTallThreads) intra_encode_kernel_tall(
+    const uint8_t* __restrict__ planes, int16_t* __restrict__ qcoef, int8_t* __restrict__ modes,
+    uint8_t* __restrict__ escape, uint8_t* __restrict__ recon, int H, int W, Quantiser q) {
+  encode_planes(planes, qcoef, modes, escape, recon, H, W, q, kTallRowWarps);
 }
 
 // ---- K6: the decode ------------------------------------------------------
@@ -943,24 +988,35 @@ cudaError_t prepare(Kernel kernel, size_t smem) {
 
 // magic, shift: the multiply-and-shift form of the division by 800 qstep,
 // exact for every numerator below 2^25 (the wrapper computes them).
+// row_warps: the form (ops/intra_cuda.py:encode_form): 0 the direct form,
+// 1..kEncRowWarps the staged form with that many row warps, kTallRowWarps
+// the tall form, for at most kTallRows block rows.
 extern "C" int vcs_intra_encode(const void* planes, void* qcoef, void* modes, void* escape,
                                 void* recon, int N, int H, int W, int qstep, unsigned magic,
-                                int shift, void* stream) {
+                                int shift, int row_warps, void* stream) {
   const int nbh = H / 4;
-  int row_warps = (nbh + 31) / 32, threads = 32 * (row_warps + kFlushWarps);
-  if (threads > kEncThreads) {     // more block rows than row threads: no staging
-    row_warps = 0;
-    threads = kEncThreads;
-  }
+  if (row_warps < 0 || (row_warps > kEncRowWarps && row_warps != kTallRowWarps) ||
+      (row_warps && nbh > 32 * row_warps) || (row_warps == kTallRowWarps && nbh > kTallRows))
+    return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = static_cast<size_t>(nbh) * sizeof(uint32_t) *
                       (kEncRowWords + (row_warps ? kStageWords : 0));
-  cudaError_t err = prepare(intra_encode_kernel, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
   const Quantiser q = {qstep, 400 * qstep, magic, shift};
-  intra_encode_kernel<<<N, threads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(planes), static_cast<int16_t*>(qcoef),
-      static_cast<int8_t*>(modes), static_cast<uint8_t*>(escape), static_cast<uint8_t*>(recon),
-      H, W, q, row_warps);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const uint8_t* src = static_cast<const uint8_t*>(planes);
+  int16_t* qc = static_cast<int16_t*>(qcoef);
+  int8_t* md = static_cast<int8_t*>(modes);
+  uint8_t* es = static_cast<uint8_t*>(escape);
+  uint8_t* rc = static_cast<uint8_t*>(recon);
+  if (row_warps == kTallRowWarps) {
+    cudaError_t err = prepare(intra_encode_kernel_tall, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    intra_encode_kernel_tall<<<N, kTallThreads, smem, st>>>(src, qc, md, es, rc, H, W, q);
+  } else {
+    cudaError_t err = prepare(intra_encode_kernel, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const int threads = row_warps ? 32 * (row_warps + kFlushWarps) : kEncThreads;
+    intra_encode_kernel<<<N, threads, smem, st>>>(src, qc, md, es, rc, H, W, q, row_warps);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -58,9 +58,10 @@ SIGNATURES = {
     "vcs_c420_encode": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     "vcs_c420_decode": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     # planes, qcoef_out, modes_out, escape_out, recon_out, N, H, W, qstep,
-    # magic, shift (intra_cuda.quant_magic), stream
+    # magic, shift (intra_cuda.quant_magic), row_warps
+    # (intra_cuda.encode_form), stream
     "vcs_intra_encode": (_P, _P, _P, _P, _P, _I, _I, _I, _I, ctypes.c_uint, _I,
-                         _P),
+                         _I, _P),
     # res, modes, escape, out, scratch (int16 like res, or null: see the
     # source), N, H, W, qstep, clip, stream
     "vcs_intra_decode": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),

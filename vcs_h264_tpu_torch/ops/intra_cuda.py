@@ -16,7 +16,8 @@ from vcs_h264_tpu_torch.utils.profiling import add_counts
 
 # Launches of each kernel of this module, counted where the kernel launches.
 # K5's launches are also the count `intra_launches` of the innermost open
-# span, while spans are recorded.
+# span, while spans are recorded, and those in the direct form
+# (`encode_form`) the count `intra_direct_launches`.
 LAUNCHES = {"intra_encode": 0, "intra_decode": 0}
 
 _SHMEM_MAX = 232448           # dynamic shared memory a block may opt into
@@ -24,6 +25,12 @@ _SHMEM_PER_ROW = 20 * 4       # the carry of one block row, in bytes (the
                               # int form, which the tallest planes take)
 FAST_DECODE_ROWS = 9 * 32     # block rows up to which the clipped decode
                               # takes its fast form (kDecRowWarps warps)
+# K5's forms by block rows: the staged form, a thread per block row in up
+# to 8 row warps (kEncRowWarps); the tall form, 9 row warps (kTallRowWarps)
+# while a block row's carry and staged outputs, 5 + 201 words, fit in
+# shared memory (kTallRows); the direct form past it.
+STAGED_ENCODE_ROWS = 8 * 32
+TALL_ENCODE_ROWS = min(9 * 32, _SHMEM_MAX // (4 * (5 + 201)))
 
 
 def _check(name: str, arg: str, t: torch.Tensor, dtype, ndim: int,
@@ -75,6 +82,18 @@ def quant_magic(qstep: int) -> tuple[int, int]:
     return -(-(1 << k) // d), k - 32
 
 
+def encode_form(h: int) -> int:
+    """The row warps K5 launches with on planes of `h` pixel rows, which
+    `vcs_intra_encode` takes as its form: ceil(nbh / 32) up to
+    STAGED_ENCODE_ROWS block rows (the staged form), 9 up to
+    TALL_ENCODE_ROWS (the tall form), 0 past it (the direct form, which
+    loads and stores on the chain)."""
+    nbh = h // 4
+    if nbh <= STAGED_ENCODE_ROWS:
+        return -(-nbh // 32)
+    return 9 if nbh <= TALL_ENCODE_ROWS else 0
+
+
 def intra_encode(planes: torch.Tensor, qstep: int):
     """K5 on the card: planes uint8 [N, H, W] -> (qcoef int16 [N, H, W]
     block-layout planes, modes int8 [N, H/4, W/4], escape bool [N, H/4,
@@ -89,16 +108,17 @@ def intra_encode(planes: torch.Tensor, qstep: int):
     modes = torch.empty((n, h // 4, w // 4), dtype=torch.int8, device=dev)
     escape = torch.empty((n, h // 4, w // 4), dtype=torch.bool, device=dev)
     recon = torch.empty((n, h, w), dtype=torch.uint8, device=dev)
+    row_warps = encode_form(h)
     lib = _build.load_library()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.vcs_intra_encode(planes.data_ptr(), qcoef.data_ptr(),
                                    modes.data_ptr(), escape.data_ptr(),
                                    recon.data_ptr(), n, h, w, qstep,
-                                   *quant_magic(qstep), stream)
+                                   *quant_magic(qstep), row_warps, stream)
     _build.check(err, name)
     LAUNCHES[name] += 1
-    add_counts(intra_launches=1)
+    add_counts(intra_launches=1, intra_direct_launches=int(row_warps == 0))
     return qcoef, modes, escape, recon
 
 
