@@ -109,7 +109,7 @@ def test_native_build_writes_only_the_port_build_dir(tmp_path, monkeypatch):
     out = bits.native_library_path()
     assert out.parent == tmp_path / "build"
     assert out.name.startswith("libvcsbits_")
-    bits._build_native(out)
+    assert bits._build_native() == out
     assert out.exists() and sorted(p.name for p in out.parent.iterdir()) \
         == [out.name]
     assert listing() == before

@@ -27,7 +27,8 @@ from vcs_h264_tpu_torch import CodecConfig  # noqa: E402
 from vcs_h264_tpu_torch.models import encoder, intra_codec  # noqa: E402
 from vcs_h264_tpu_torch.models import pipeline, pipeline420  # noqa: E402
 from vcs_h264_tpu_torch.models.encoder import Encoder  # noqa: E402
-from vcs_h264_tpu_torch.models.gop import EncodedVideo  # noqa: E402
+from vcs_h264_tpu_torch.models.gop import (EncodedVideo,  # noqa: E402
+                                            load_gop_npz)
 
 IBP = ("I", "B", "P")
 PROD = dict(quant_mode="rounded", intra_i=True)
@@ -204,13 +205,11 @@ def test_port_directory_resumes_in_jax(written, monkeypatch, case):
 def test_loaded_gops_hold_load_npz_dtypes(written, tmp_path, case):
     _, pvid, _, pdir = written(case)
     cfg = pvid.config
-    load = (encoder._load_gop_npz_420 if cfg.chroma_420
-            else encoder._load_gop_npz)
     pvid.save_npz(str(tmp_path / "v.npz"))
     want = EncodedVideo.load_npz(str(tmp_path / "v.npz"))
     for g, name in enumerate(_files(pdir)):
-        gop = load(os.path.join(pdir, name),
-                   encoder._cfg_fingerprint(cfg))
+        gop = load_gop_npz(os.path.join(pdir, name), cfg,
+                           encoder._cfg_fingerprint(cfg))
         for f in dataclasses.fields(gop):
             x, y = getattr(gop, f.name), getattr(want.gops[g], f.name)
             assert (x is None) == (y is None), f.name
@@ -230,7 +229,7 @@ def test_stale_fingerprint_is_encoded_again(tmp_path, monkeypatch, case):
     arrays = _arrays(first)
     del arrays["cfg"]
     np.savez_compressed(first, **arrays)
-    assert encoder._load_gop_npz(first, "x") is None
+    assert load_gop_npz(first, CodecConfig(**CASES[case]), "x") is None
     calls = _count(monkeypatch, PORT_ENCODES)
     requant = CodecConfig(**dict(CASES[case], intra_qstep=12))
     got = Encoder(requant, 2, device="cpu").encode_frames(

@@ -14,21 +14,14 @@ import numpy as np
 import torch
 
 from vcs_h264_tpu_torch.config import CodecConfig
-from vcs_h264_tpu_torch.models.gop import (NPZ_420, EncodedGOP,
-                                            EncodedGOP420, EncodedVideo,
-                                            residual_dtype)
+from vcs_h264_tpu_torch.models.gop import (EncodedGOP, EncodedGOP420,
+                                            EncodedVideo, npz_fields)
 
 
 def _dtypes(cfg: CodecConfig) -> dict:
-    """GOP field -> dtype, as both packages hold it in memory; the
-    residuals' follows the mode (`models.gop.residual_dtype`). Under
-    `chroma_420` the fields are `EncodedGOP420`'s."""
-    if cfg.chroma_420:
-        return {name: mem for name, (_, _, mem) in NPZ_420.items()}
-    res = residual_dtype(cfg)
-    return dict(i_frame=np.uint8, mv=np.int32, residuals=res, b_mv=np.int32,
-                b_mode=np.int8, b_residuals=res, i_qcoef=np.int16,
-                i_modes=np.int8, i_escape=bool)
+    """GOP field -> dtype, as both packages hold it in memory
+    (`models.gop.npz_fields`)."""
+    return {name: mem for name, (_, _, mem) in npz_fields(cfg).items()}
 
 
 def from_jax_video(video) -> EncodedVideo:

@@ -2,9 +2,11 @@
 `vcs_h264_tpu/io/bitstream.py`), byte for byte the JAX package's format:
 
   container = header | per-GOP sections
-  per GOP:   I-frame section (raw planes, lossless intra or lossy intra
-             payload) | range-coded MVs | range-coded quantized
-             coefficients (zigzag per block) | B-frame section
+  per GOP:   header | I section (raw planes, lossless intra or lossy intra
+             payload), a part per plane group | range-coded MVs |
+             range-coded quantized coefficients (zigzag per block) per
+             plane group | B section (vectors, modes, a part per group)
+  plane groups: 4:4:4 the frame's planes; 4:2:0 luma, then chroma
 
 The entropy coders are host code over numpy. The package's own C++ source,
 `vcs_h264_tpu_torch/csrc/bitstream.cpp` (a copy of the JAX package's
@@ -43,7 +45,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
-import hashlib
+import math
 import os
 import struct
 import subprocess
@@ -55,7 +57,7 @@ import numpy as np
 import torch
 
 from vcs_h264_tpu_torch.config import CodecConfig
-from vcs_h264_tpu_torch.models import intra_codec, pipeline420
+from vcs_h264_tpu_torch.models import intra_codec
 from vcs_h264_tpu_torch.models.encoder import resolve_device
 from vcs_h264_tpu_torch.models.gop import (EncodedGOP, EncodedGOP420,
                                             EncodedVideo)
@@ -135,22 +137,16 @@ _LIB_LOCK = threading.Lock()
 
 
 def native_library_path():
-    h = hashlib.sha256(" ".join(CXX_FLAGS).encode())
-    h.update(NATIVE_SRC.read_bytes())
-    return _build.BUILD / f"libvcsbits_{h.hexdigest()[:16]}.so"
+    return _build.library_file("libvcsbits", CXX_FLAGS, [NATIVE_SRC])
 
 
-def _build_native(out) -> None:
-    """g++ into a file of this process and thread, then an atomic rename:
-    processes that build at once never load a partial library."""
-    out.parent.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
-    try:
-        subprocess.run(["g++", *CXX_FLAGS, "-o", str(tmp), str(NATIVE_SRC)],
-                       check=True, capture_output=True)
-        os.replace(tmp, out)
-    finally:
-        tmp.unlink(missing_ok=True)
+def _build_native():
+    """The coder's library, built with g++ where it is not yet."""
+    return _build.cached_library(
+        "libvcsbits", CXX_FLAGS, [NATIVE_SRC],
+        lambda out: subprocess.run(
+            ["g++", *CXX_FLAGS, "-o", str(out), str(NATIVE_SRC)],
+            check=True, capture_output=True))
 
 
 def load_native() -> Optional[ctypes.CDLL]:
@@ -162,10 +158,7 @@ def load_native() -> Optional[ctypes.CDLL]:
             return _LIB
         _LIB_TRIED = True
         try:
-            so = native_library_path()
-            if not so.exists():
-                _build_native(so)
-            lib = ctypes.CDLL(str(so))
+            lib = ctypes.CDLL(str(_build_native()))
             for name, argtypes in NATIVE_SIGNATURES.items():
                 fn = getattr(lib, name)
                 fn.argtypes = list(argtypes)
@@ -1300,39 +1293,102 @@ def _decode_modes(blob: bytes, shape, nsym: int,
     return out.reshape(shape)
 
 
-def _write_intra_payload(fh, qcoef, modes, escape) -> None:
-    """One lossy-intra payload section: zigzag4 sig-coded coeffs, mode maps
-    with (left, up) contexts, range-coded escape."""
-    enc_q, _ = _coeff_codecs(_VERSION, 4)
-    q_blob = enc_q(np.asarray(qcoef, np.int16))
+def _write_intra_section(fh, planes, modes, escape, lossy: bool) -> None:
+    """One intra section of a [C, H, W] plane stack: the lossy payload's
+    quantized coefficients (zigzag4 sig-coded) or the lossless residual
+    (range-coded), then the mode maps with (left, up) contexts and the
+    range-coded escape flags."""
+    if lossy:
+        enc_q, _ = _coeff_codecs(_VERSION, 4)
+        first = enc_q(np.asarray(planes, np.int16))
+    else:
+        first = rc_encode(np.asarray(planes).ravel())
     modes_b = _encode_modes(modes, 9)
     esc = rc_encode(np.asarray(escape).astype(np.int16).ravel())
-    fh.write(struct.pack("<QQQ", len(q_blob), len(modes_b), len(esc)))
-    fh.write(q_blob); fh.write(modes_b); fh.write(esc)
+    fh.write(struct.pack("<QQQ", len(first), len(modes_b), len(esc)))
+    fh.write(first); fh.write(modes_b); fh.write(esc)
 
 
-def _scan_intra_payload(fh):
-    """Raw blobs of one intra payload section (no entropy decode)."""
+def _scan_intra_section(fh):
+    """Raw blobs of one intra section (no entropy decode)."""
     ql, ml, el = struct.unpack("<QQQ", fh.read(24))
     return fh.read(ql), fh.read(ml), fh.read(el)
 
 
-def _decode_intra_payload(blobs, shape, version):
-    """Entropy-decode a scanned intra payload for a [C, H, W] stack."""
+def _decode_intra_section(blobs, shape, version, lossy: bool):
+    """Entropy-decode a scanned intra section for a [C, H, W] stack ->
+    (quantized coefficients or residual int16, modes int8, escape bool)."""
     _, dec = _stream_codecs(version)
-    _, dec_q = _coeff_codecs(version, 4)
     c, ih, iw = shape
-    q_blob, m_blob, e_blob = blobs
-    iq = dec_q(q_blob, (c, ih, iw))
-    nm = c * (ih // 4) * (iw // 4)
-    imodes = _decode_modes(m_blob, (c, ih // 4, iw // 4), 9, version)
-    iesc = dec(e_blob, nm)
-    return iq, imodes, iesc.reshape(c, ih // 4, iw // 4).astype(bool)
+    first, m_blob, e_blob = blobs
+    if lossy:
+        _, dec_q = _coeff_codecs(version, 4)
+        planes = dec_q(first, shape)
+    else:
+        planes = dec(first, c * ih * iw).reshape(shape)
+    modes = _decode_modes(m_blob, (c, ih // 4, iw // 4), 9, version)
+    esc = dec(e_blob, c * (ih // 4) * (iw // 4))
+    return planes, modes, esc.reshape(c, ih // 4, iw // 4).astype(bool)
 
 
-def _read_intra_payload(fh, shape, version):
-    """Inverse of _write_intra_payload for a [C, H, W] plane stack."""
-    return _decode_intra_payload(_scan_intra_payload(fh), shape, version)
+def _write_blob(fh, blob: bytes) -> None:
+    fh.write(struct.pack("<Q", len(blob)))
+    fh.write(blob)
+
+
+def _read_blob(fh) -> bytes:
+    (n,) = struct.unpack("<Q", fh.read(8))
+    return fh.read(n)
+
+
+@dataclasses.dataclass(frozen=True)
+class _Group:
+    """One plane group of a GOP section, by the record's fields that hold
+    it: the I planes, the P and the B residuals and the three lossy-intra
+    payload fields; `channels` planes (None: the GOP header's count) at
+    1/`sub` of the frame's sides. A `bare` group is one plane that the
+    record holds without its channel axis."""
+    i: str
+    res: str
+    bres: str
+    payload: tuple
+    channels: Optional[int]
+    sub: int = 1
+    bare: bool = False
+
+
+@dataclasses.dataclass(frozen=True)
+class _Layout:
+    """A stream layout's GOP section: the record it fills, the GOP header's
+    struct, the plane groups in file order, and the versions from which the
+    I-section type byte and the B section are in the file."""
+    record: type
+    header: str
+    groups: tuple
+    itype_from: int
+    b_from: int
+
+
+# 4:4:4: a header (C, H, W) and the I-frame's C planes as one group
+_LAYOUT_444 = _Layout(EncodedGOP, "<III", (
+    _Group("i_frame", "residuals", "b_residuals", EncodedGOP.PAYLOAD,
+           None),), itype_from=5, b_from=4)
+# 4:2:0: a header (H, W), the luma plane, then the two half-size chroma planes
+_LAYOUT_420 = _Layout(EncodedGOP420, "<II", (
+    _Group("i_y", "res_y", "bres_y", EncodedGOP420.PAYLOAD[:3], 1,
+           bare=True),
+    _Group("i_c", "res_c", "bres_c", EncodedGOP420.PAYLOAD[3:], 2, sub=2)),
+    itype_from=0, b_from=7)
+
+
+def _layout(cfg: CodecConfig) -> _Layout:
+    return _LAYOUT_420 if cfg.chroma_420 else _LAYOUT_444
+
+
+def _lossy(gop, layout: _Layout, cfg: CodecConfig) -> bool:
+    """Whether a GOP's I section is its lossy-intra payload."""
+    return bool(getattr(gop, layout.groups[0].payload[0]) is not None
+                and cfg.intra_qstep)
 
 
 def _parallel_gop_builds(recs, build) -> list:
@@ -1385,88 +1441,76 @@ def _host_numpy(gop):
     return gop._map(_to_host)
 
 
-def _lossless_sections(planes, per_gop: int, device):
-    """The lossless-intra re-encode of I planes: uint8 [N, H, W], `per_gop`
-    planes to a GOP, coded by `encode_intra_frame` on `device` (the plain,
-    fully parallel `luma4x4_codec`), GOP_CHUNK GOPs a call -> the numpy
-    triple (residual int16, modes int8, escape bool) [N, ...]."""
-    step, parts = GOP_CHUNK * per_gop, []
-    for s in range(0, len(planes), step):
-        intra = intra_codec.encode_intra_frame(torch.from_numpy(
-            np.ascontiguousarray(planes[s:s + step])).to(device))
-        parts.append([_to_host(x) for x in intra])
-    return tuple(np.concatenate(x) for x in zip(*parts))
+def _lossless_prep(gops, cfg: CodecConfig, layout: _Layout, device) -> list:
+    """Per GOP, its lossless-intra sections (residual int16, modes int8,
+    escape bool), one per plane group, or None where its I section is not
+    lossless. The I planes of all such GOPs are re-encoded group by group
+    by `encode_intra_frame` on `device` (the plain, fully parallel
+    `luma4x4_codec`), GOP_CHUNK GOPs a call."""
+    out = [[] if cfg.intra_i and not _lossy(g, layout, cfg) else None
+           for g in gops]
+    idx = [i for i, o in enumerate(out) if o is not None]
+    if not idx:
+        return out
+    for group in layout.groups:
+        # [C, H, W] a GOP, a bare plane as a view with C = 1
+        planes = [getattr(gops[i], group.i) for i in idx]
+        planes = np.concatenate([p[None] for p in planes] if group.bare
+                                else planes)
+        n = len(planes) // len(idx)
+        for s in range(0, len(idx), GOP_CHUNK):
+            coded = [_to_host(x) for x in intra_codec.encode_intra_frame(
+                torch.from_numpy(np.ascontiguousarray(
+                    planes[s * n:(s + GOP_CHUNK) * n])).to(device))]
+            for k, i in enumerate(idx[s:s + GOP_CHUNK]):
+                out[i].append(tuple(x[k * n:k * n + n] for x in coded))
+    return out
 
 
-def _write_lossless(fh, residual, modes, escape) -> None:
-    """One lossless-intra section of a [C, H, W] plane stack."""
-    res_blob = rc_encode(np.asarray(residual).ravel())
-    modes_b = _encode_modes(modes, 9)
-    esc = rc_encode(np.asarray(escape).astype(np.int16).ravel())
-    fh.write(struct.pack("<QQQ", len(res_blob), len(modes_b), len(esc)))
-    fh.write(res_blob); fh.write(modes_b); fh.write(esc)
+def _residual_blob(res, group: _Group, cfg: CodecConfig) -> bytes:
+    """The blob of a group's residual stack, empty for none: its quantized
+    coefficients through the coefficient coder (a bare group's [N, H, W]
+    as N frames of one channel, so that the sig coder's temporal contexts
+    see frames), or without a DCT its wrap residuals, bytes recentred to
+    int16 around 0 for short codes (the values cluster at 0 and 255)."""
+    if res is None:
+        return b""
+    res = np.asarray(res)
+    if not cfg.with_dct:
+        res16 = res.astype(np.int16)
+        res16 = np.where(res16 > 127, res16 - 256, res16).astype(np.int16)
+        return rc_encode(res16.ravel())
+    res16 = res if res.dtype == np.int16 else np.round(res).astype(np.int16)
+    enc_co, _ = _coeff_codecs(_VERSION, cfg.block_size)
+    return enc_co(res16[:, None] if group.bare else res16)
 
 
-def _save_vcs_420(gops, cfg: CodecConfig, fh, device) -> None:
-    """Per-GOP 4:2:0 sections: Y + quarter-res chroma (pipeline420)."""
-    bs = cfg.block_size
-    lossless = [None] * len(gops)
-    idx = [i for i, g in enumerate(gops)
-           if cfg.intra_i and not (g.iq_y is not None and cfg.intra_qstep)]
-    if idx:
-        ry, my, ey = _lossless_sections(
-            np.stack([gops[i].i_y for i in idx]), 1, device)
-        rc, mc, ec = _lossless_sections(
-            np.concatenate([gops[i].i_c for i in idx]), 2, device)
-        for k, i in enumerate(idx):
-            c = slice(2 * k, 2 * k + 2)
-            lossless[i] = ((ry[k:k + 1], my[k:k + 1], ey[k:k + 1]),
-                           (rc[c], mc[c], ec[c]))
-    for sec in _parallel_gop_sections(
-            list(zip(gops, lossless)),
-            lambda b, g: _write_gop_420(b, *g, cfg, bs)):
-        fh.write(sec)
-
-
-def _write_gop_420(fh, gop, lossless, cfg, bs) -> None:
-    h, w = gop.i_y.shape[-2:]
-    fh.write(struct.pack("<II", h, w))
-    if gop.iq_y is not None and cfg.intra_qstep:
+def _write_gop(fh, gop, lossless, cfg: CodecConfig, layout: _Layout) -> None:
+    """One GOP section of host arrays; `lossless` holds a lossless-intra
+    section per plane group when the I section is lossless."""
+    groups = layout.groups
+    fh.write(struct.pack(layout.header, *np.shape(getattr(gop, groups[0].i))))
+    # I section type: 2 = the lossy-intra payload (bit-stable: the payload
+    # from encode time, NOT a re-encode of the recon), 1 = lossless intra,
+    # 0 = raw planes
+    if _lossy(gop, layout, cfg):
         fh.write(struct.pack("<B", 2))
-        _write_intra_payload(fh, gop.iq_y, gop.im_y, gop.ie_y)
-        _write_intra_payload(fh, gop.iq_c, gop.im_c, gop.ie_c)
+        for group in groups:
+            _write_intra_section(fh, *(getattr(gop, k) for k in group.payload),
+                                 lossy=True)
     elif cfg.intra_i:
         fh.write(struct.pack("<B", 1))
         for section in lossless:
-            _write_lossless(fh, *section)
+            _write_intra_section(fh, *section, lossy=False)
     else:
         fh.write(struct.pack("<B", 0))
-        fh.write(np.asarray(gop.i_y, np.uint8).tobytes())
-        fh.write(np.asarray(gop.i_c, np.uint8).tobytes())
+        for group in groups:
+            fh.write(np.asarray(getattr(gop, group.i), np.uint8).tobytes())
     fh.write(struct.pack("<I", gop.mv.shape[0]))
-    mv_blob = rc_encode_mv(np.asarray(gop.mv, np.int16).ravel())
-    fh.write(struct.pack("<Q", len(mv_blob)))
-    fh.write(mv_blob)
-
-    enc_co, _ = _coeff_codecs(_VERSION, bs)
-
-    def put_res(res):
-        if res is None:
-            fh.write(struct.pack("<Q", 0))
-            return
-        res = np.asarray(res, np.int16)
-        if res.ndim == 3:
-            # luma planes [NP, H, W]: make the frame axis explicit so the
-            # sig coder's geometry maps NP to frames (temporal contexts),
-            # not channels
-            res = res[:, None]
-        blob = enc_co(res)
-        fh.write(struct.pack("<Q", len(blob)))
-        fh.write(blob)
-
-    put_res(gop.res_y)
-    put_res(gop.res_c)
-    # ---- B section (v7) ----------------------------------------------
+    _write_blob(fh, rc_encode_mv(np.asarray(gop.mv, np.int16).ravel()))
+    for group in groups:
+        _write_blob(fh, _residual_blob(getattr(gop, group.res), group, cfg))
+    # ---- B section -----------------------------------------------------
     n_b = 0 if gop.b_mv is None else gop.b_mv.shape[0]
     fh.write(struct.pack("<I", n_b))
     if n_b:
@@ -1474,168 +1518,9 @@ def _write_gop_420(fh, gop, lossless, cfg, bs) -> None:
         mode_b = _encode_modes(gop.b_mode, 3)
         fh.write(struct.pack("<QQ", len(bmv_blob), len(mode_b)))
         fh.write(bmv_blob); fh.write(mode_b)
-        put_res(gop.bres_y)
-        put_res(gop.bres_c)
-
-
-def _gop_groups(gops, recs, key: str) -> list:
-    """The intra-coded GOPs, grouped by section type and plane shape, in
-    batches of up to GOP_CHUNK GOPs: (section type, GOPs) pairs."""
-    groups = {}
-    for g, r in zip(gops, recs):
-        if r["itype"] in (1, 2):
-            groups.setdefault((r["itype"], r[key]), []).append(g)
-    return [(itype, members[s:s + GOP_CHUNK])
-            for (itype, _), members in groups.items()
-            for s in range(0, len(members), GOP_CHUNK)]
-
-
-def _intra_decode_420(gops, recs, cfg: CodecConfig, device, backend) -> None:
-    """Phase 3 of the 4:2:0 loader: the I planes of every GOP, decoded per
-    plane shape in batches of GOP_CHUNK GOPs on `device` (K6 on a GPU: a
-    batch takes one launch for its luma planes and one for its chroma
-    planes)."""
-    for itype, members in _gop_groups(gops, recs, "hw"):
-        if itype == 2:
-            batch = EncodedGOP420(
-                None, None, None, None, None, *(
-                    torch.from_numpy(np.stack([getattr(g, k)
-                                               for g in members])).to(device)
-                    for k in EncodedGOP420.PAYLOAD))
-            out = pipeline420.decode_intra_420(batch, cfg.intra_qstep,
-                                               backend)
-            i_y, i_c = _to_host(out.i_y), _to_host(out.i_c)
-        else:
-            i_y = _decode_lossless(
-                [g.iless[0] for g in members], device, backend)[:, 0]
-            i_c = _decode_lossless(
-                [g.iless[1] for g in members], device, backend)
-        for k, g in enumerate(members):
-            g.i_y, g.i_c = i_y[k], i_c[k]
-
-
-def _decode_lossless(sections, device, backend) -> np.ndarray:
-    """Lossless-intra sections (residual, modes, escape) of [C, H, W] each
-    -> uint8 [B, C, H, W], all B * C planes decoded in one call."""
-    b, (c, h, w) = len(sections), sections[0][0].shape
-    res, modes, esc = (torch.from_numpy(np.concatenate(x)).to(device)
-                       for x in zip(*sections))
-    out = intra_codec.decode_intra_frame(
-        intra_codec.IntraFrame(res, modes, esc), backend)
-    return _to_host(out.to(torch.uint8)).reshape(b, c, h, w)
-
-
-def _load_vcs_420(fh, cfg: CodecConfig, n_gops: int, bs: int,
-                  version: int, device, backend):
-    _, dec = _stream_codecs(version)
-    _, dec_co = _coeff_codecs(version, bs)
-    _, dec_mv = _mv_codecs(version)
-
-    # phase 1: sequential scan — struct fields + raw blobs, no entropy
-    # decode (section lengths are all explicit, so scanning is cheap)
-    recs = []
-    for _ in range(n_gops):
-        r = {}
-        h, w = struct.unpack("<II", fh.read(8))
-        if not (1 <= h <= 16384 and 1 <= w <= 16384):
-            raise ValueError(f".vcs: implausible GOP plane dims {h}x{w}")
-        hc, wc = h // 2, w // 2
-        r["hw"] = (h, w)
-        (r["itype"],) = struct.unpack("<B", fh.read(1))
-        if r["itype"] == 2:
-            r["ipay_y"] = _scan_intra_payload(fh)
-            r["ipay_c"] = _scan_intra_payload(fh)
-        elif r["itype"] == 1:
-            r["iless"] = []
-            for _shape in ((1, h, w), (2, hc, wc)):
-                rl, ml, el = struct.unpack("<QQQ", fh.read(24))
-                r["iless"].append((fh.read(rl), fh.read(ml), fh.read(el)))
-        else:
-            r["iraw"] = (fh.read(h * w), fh.read(2 * hc * wc))
-        (r["n_p"],) = struct.unpack("<I", fh.read(4))
-        (mv_len,) = struct.unpack("<Q", fh.read(8))
-        r["mv"] = fh.read(mv_len)
-
-        def blob():
-            (blob_len,) = struct.unpack("<Q", fh.read(8))
-            return fh.read(blob_len) if blob_len else None
-
-        r["res_y"] = blob()
-        r["res_c"] = blob()
-        r["n_b"] = 0
-        if version >= 7:
-            (r["n_b"],) = struct.unpack("<I", fh.read(4))
-            if r["n_b"]:
-                bl, ml = struct.unpack("<QQ", fh.read(16))
-                r["b_mv"] = fh.read(bl)
-                r["b_mode"] = fh.read(ml)
-                r["bres_y"] = blob()
-                r["bres_c"] = blob()
-        recs.append(r)
-
-    # phase 2: entropy decode per GOP on a thread pool (the C decoder
-    # releases the GIL); the I planes of intra sections wait for phase 3
-    def build(r):
-        h, w = r["hw"]
-        hc, wc = h // 2, w // 2
-        nbh, nbw = h // bs, w // bs
-        n_p, n_b, itype = r["n_p"], r["n_b"], r["itype"]
-        iq = im = ie = iqc = imc = iec = None
-        i_y = i_c = iless = None
-        if itype == 2:
-            iq, im, ie = _decode_intra_payload(r["ipay_y"], (1, h, w),
-                                               version)
-            iqc, imc, iec = _decode_intra_payload(r["ipay_c"], (2, hc, wc),
-                                                  version)
-        elif itype == 1:
-            iless = []
-            for blobs, shape in zip(r["iless"],
-                                    ((1, h, w), (2, hc, wc))):
-                c, ih, iw = shape
-                res = dec(blobs[0], c * ih * iw).reshape(shape)
-                modes = _decode_modes(
-                    blobs[1], (c, ih // 4, iw // 4), 9, version)
-                esc = dec(blobs[2], c * (ih // 4) * (iw // 4))
-                esc = esc.reshape(c, ih // 4, iw // 4).astype(bool)
-                iless.append((res, modes, esc))
-        else:
-            i_y = np.frombuffer(r["iraw"][0], np.uint8).reshape(h, w)
-            i_c = np.frombuffer(r["iraw"][1], np.uint8).reshape(2, hc, wc)
-        mv = dec_mv(r["mv"], n_p * nbh * nbw * 2)
-        mv = mv.reshape(n_p, nbh, nbw, 2).astype(np.int32)
-
-        def get_res(blobv, shape):
-            if blobv is None:
-                return None
-            if len(shape) == 3:          # luma [NP, H, W] (see put_res)
-                n_f, hh, ww = shape
-                return dec_co(blobv, (n_f, 1, hh, ww)).reshape(shape)
-            return dec_co(blobv, shape)
-
-        res_y = get_res(r["res_y"], (n_p, h, w))
-        res_c = get_res(r["res_c"], (n_p, 2, hc, wc))
-        b_mv = b_mode = bres_y = bres_c = None
-        if n_b:
-            b_mv = dec_mv(r["b_mv"], n_b * 2 * nbh * nbw * 2)
-            b_mv = b_mv.reshape(n_b, 2, nbh, nbw, 2).astype(np.int32)
-            b_mode = _decode_modes(r["b_mode"], (n_b, nbh, nbw), 3,
-                                   version)
-            bres_y = get_res(r["bres_y"], (n_b, h, w))
-            bres_c = get_res(r["bres_c"], (n_b, 2, hc, wc))
-        gop = EncodedGOP420(i_y=i_y, i_c=i_c, mv=mv,
-                            res_y=res_y, res_c=res_c,
-                            iq_y=iq, im_y=im, ie_y=ie,
-                            iq_c=iqc, im_c=imc, ie_c=iec,
-                            b_mv=b_mv, b_mode=b_mode,
-                            bres_y=bres_y, bres_c=bres_c)
-        gop.iless = iless
-        return gop
-
-    gops = _parallel_gop_builds(recs, build)
-    # phase 3: the I planes of all GOPs, batched per plane shape
-    with trace_annotation("load_vcs.intra"):
-        _intra_decode_420(gops, recs, cfg, device, backend)
-    return gops
+        for group in groups:
+            _write_blob(fh, _residual_blob(getattr(gop, group.bres), group,
+                                           cfg))
 
 
 @traced("save_vcs")
@@ -1663,7 +1548,7 @@ def save_vcs(video: EncodedVideo, path: str, *, device="cuda") -> None:
             "config to write a new container.")
     device = resolve_device(device)
     add_counts(frames=video.num_frames)
-    bs = cfg.block_size
+    layout = _layout(cfg)
     with trace_annotation("save_vcs.pull"):
         gops = [_host_numpy(g) for g in video.gops]
     with open(path, "wb") as fh:
@@ -1675,83 +1560,17 @@ def save_vcs(video: EncodedVideo, path: str, *, device="cuda") -> None:
             mode |= 8
         fh.write(struct.pack(
             "<IIIdIIdII", _VERSION, video.height, video.width, video.fps,
-            video.num_frames, bs, cfg.quality_factor, len(video.gops),
-            mode))
+            video.num_frames, cfg.block_size, cfg.quality_factor,
+            len(video.gops), mode))
         pat = ",".join(cfg.gop_pattern).encode()
         fh.write(struct.pack("<I", len(pat)))
         fh.write(pat)
         fh.write(struct.pack("<I", cfg.intra_qstep))
-        if cfg.chroma_420:
-            _save_vcs_420(gops, cfg, fh, device)
-            return
-        lossless = [None] * len(gops)
-        idx = [i for i, g in enumerate(gops) if cfg.intra_i
-               and not (g.i_qcoef is not None and cfg.intra_qstep)]
-        if idx:
-            res, modes, esc = _lossless_sections(
-                np.concatenate([gops[i].i_frame for i in idx]), 3, device)
-            for k, i in enumerate(idx):
-                c = slice(3 * k, 3 * k + 3)
-                lossless[i] = (res[c], modes[c], esc[c])
+        lossless = _lossless_prep(gops, cfg, layout, device)
         for sec in _parallel_gop_sections(
                 list(zip(gops, lossless)),
-                lambda b, g: _write_gop_fullres(b, *g, cfg, bs)):
+                lambda b, g: _write_gop(b, *g, cfg, layout)):
             fh.write(sec)
-
-
-def _write_gop_fullres(fh, gop, lossless, cfg, bs) -> None:
-        i_frame = np.asarray(gop.i_frame, dtype=np.uint8)
-        mv = np.asarray(gop.mv, dtype=np.int16)
-        fh.write(struct.pack("<III", *i_frame.shape))
-        # I-frame section type: 2 = lossy intra payload (bit-stable: the
-        # payload from encode time, NOT a re-encode of the recon),
-        # 1 = lossless intra, 0 = raw planes.
-        if gop.i_qcoef is not None and cfg.intra_qstep:
-            fh.write(struct.pack("<B", 2))
-            _write_intra_payload(fh, gop.i_qcoef, gop.i_modes,
-                                 gop.i_escape)
-        elif cfg.intra_i:
-            fh.write(struct.pack("<B", 1))
-            _write_lossless(fh, *lossless)
-        else:
-            fh.write(struct.pack("<B", 0))
-            fh.write(i_frame.tobytes())
-        fh.write(struct.pack("<I", mv.shape[0]))
-        mv_blob = rc_encode_mv(mv.ravel())
-        fh.write(struct.pack("<Q", len(mv_blob)))
-        fh.write(mv_blob)
-
-        def res_blob(res):
-            if res is None:
-                return b""
-            res = np.asarray(res)
-            if cfg.with_dct:
-                res16 = (res if res.dtype == np.int16
-                         else np.round(res).astype(np.int16))
-                enc_co, _ = _coeff_codecs(_VERSION, bs)
-                return enc_co(res16)
-            # wrap residuals are bytes; recenter to int16 around 0 for
-            # short codes (values cluster at 0 and 255)
-            res16 = res.astype(np.int16)
-            res16 = np.where(res16 > 127, res16 - 256,
-                             res16).astype(np.int16)
-            return rc_encode(res16.ravel())
-
-        blob = res_blob(gop.residuals)
-        fh.write(struct.pack("<Q", len(blob)))
-        fh.write(blob)
-        # ---- B-frame section (v4) -----------------------------------
-        n_b = 0 if gop.b_mv is None else gop.b_mv.shape[0]
-        fh.write(struct.pack("<I", n_b))
-        if n_b:
-            bmv_blob = rc_encode_mv(
-                np.asarray(gop.b_mv, np.int16).ravel())
-            mode_b = _encode_modes(gop.b_mode, 3)
-            fh.write(struct.pack("<QQ", len(bmv_blob), len(mode_b)))
-            fh.write(bmv_blob); fh.write(mode_b)
-            bres = res_blob(gop.b_residuals)
-            fh.write(struct.pack("<Q", len(bres)))
-            fh.write(bres)
 
 
 class _CheckedReader:
@@ -1777,23 +1596,144 @@ class _CheckedReader:
         return data
 
 
-def _intra_decode_fullres(gops, recs, intra_qstep: int, device,
-                          backend) -> None:
-    """Phase 3 of the loader: the I-frames of every GOP, decoded per shape
-    in batches of GOP_CHUNK GOPs on `device` (K6 on a GPU: one launch a
-    batch, for its lossy-intra payloads or its lossless-intra residuals)."""
-    for itype, members in _gop_groups(gops, recs, "shape"):
+def _scan_gop(fh, layout: _Layout, version: int, intra_i: bool) -> dict:
+    """Phase 1 of the loader for one GOP section: its struct fields and raw
+    blobs, no entropy decode (every length is explicit, so the scan is
+    cheap)."""
+    head = struct.unpack(layout.header,
+                         fh.read(struct.calcsize(layout.header)))
+    *c, h, w = head
+    if not (all(1 <= n <= 4 for n in c) and 1 <= h <= 16384
+            and 1 <= w <= 16384):
+        raise ValueError(f".vcs: implausible GOP header {head}")
+    r = dict(head=head, shapes=[(g.channels or c[0], h // g.sub, w // g.sub)
+                                for g in layout.groups])
+    if version >= layout.itype_from:
+        (r["itype"],) = struct.unpack("<B", fh.read(1))
+    else:
+        r["itype"] = 1 if intra_i else 0
+    r["i"] = [_scan_intra_section(fh) if r["itype"] in (1, 2)
+              else fh.read(math.prod(shape)) for shape in r["shapes"]]
+    (r["n_p"],) = struct.unpack("<I", fh.read(4))
+    r["mv"] = _read_blob(fh)
+    r["res"] = [_read_blob(fh) for _ in layout.groups]
+    r["n_b"], r["bres"] = 0, [None] * len(layout.groups)
+    if version >= layout.b_from:
+        (r["n_b"],) = struct.unpack("<I", fh.read(4))
+        if r["n_b"]:
+            bl, ml = struct.unpack("<QQ", fh.read(16))
+            r["b_mv"], r["b_mode"] = fh.read(bl), fh.read(ml)
+            r["bres"] = [_read_blob(fh) for _ in layout.groups]
+    return r
+
+
+def _build_gop(r, layout: _Layout, cfg: CodecConfig, version: int):
+    """Phase 2 of the loader for one scanned GOP: its entropy decode into
+    the layout's record of numpy arrays. The I planes of an intra section
+    wait for phase 3, in the payload fields or, lossless, in `iless`."""
+    bs = cfg.block_size
+    _, dec = _stream_codecs(version)
+    _, dec_co = _coeff_codecs(version, bs)
+    _, dec_mv = _mv_codecs(version)
+    n_p, n_b, itype = r["n_p"], r["n_b"], r["itype"]
+    nbh, nbw = r["head"][-2] // bs, r["head"][-1] // bs
+
+    def residuals(blob, n_f, shape, group):
+        if not blob:
+            return None
+        c, ih, iw = shape
+        if not cfg.with_dct:
+            flat = dec(blob, n_f * c * ih * iw).astype(np.int32)
+            return (flat & 255).astype(np.uint8).reshape(n_f, c, ih, iw)
+        res = dec_co(blob, (n_f, c, ih, iw))
+        return res.reshape(n_f, ih, iw) if group.bare else res
+
+    f, iless = {}, []
+    for group, shape, sec, res, bres in zip(layout.groups, r["shapes"],
+                                            r["i"], r["res"], r["bres"]):
         if itype == 2:
-            pay = intra_codec.IntraFrameLossy(*(
-                torch.from_numpy(np.stack([getattr(g, k) for g in members]))
-                .to(device) for k in EncodedGOP.PAYLOAD))
-            out = _to_host(intra_codec.decode_intra_frames_lossy_batch(
-                pay, intra_qstep, backend))
+            f.update(zip(group.payload, _decode_intra_section(
+                sec, shape, version, lossy=True)))
+        elif itype == 1:
+            iless.append(_decode_intra_section(sec, shape, version,
+                                               lossy=False))
         else:
-            out = _decode_lossless([g.iless for g in members], device,
-                                   backend)
-        for g, i_frame in zip(members, out):
-            g.i_frame = i_frame
+            f[group.i] = np.frombuffer(sec, np.uint8).reshape(
+                shape[1:] if group.bare else shape)
+        f[group.res] = residuals(res, n_p, shape, group)
+        f[group.bres] = residuals(bres, n_b, shape, group)
+    f["mv"] = dec_mv(r["mv"], n_p * nbh * nbw * 2).reshape(
+        n_p, nbh, nbw, 2).astype(np.int32)
+    if n_b:
+        f["b_mv"] = dec_mv(r["b_mv"], n_b * 2 * nbh * nbw * 2).reshape(
+            n_b, 2, nbh, nbw, 2).astype(np.int32)
+        f["b_mode"] = _decode_modes(r["b_mode"], (n_b, nbh, nbw), 3, version)
+    gop = layout.record(**{k.name: f.get(k.name)
+                           for k in dataclasses.fields(layout.record)})
+    gop.iless = iless
+    return gop
+
+
+def _gop_groups(gops, recs) -> list:
+    """The intra-coded GOPs, grouped by section type and plane shape, in
+    batches of up to GOP_CHUNK GOPs: (section type, GOPs) pairs."""
+    groups = {}
+    for g, r in zip(gops, recs):
+        if r["itype"] in (1, 2):
+            groups.setdefault((r["itype"], r["head"]), []).append(g)
+    return [(itype, members[s:s + GOP_CHUNK])
+            for (itype, _), members in groups.items()
+            for s in range(0, len(members), GOP_CHUNK)]
+
+
+def _decode_lossless(sections, device, backend) -> torch.Tensor:
+    """Lossless-intra sections (residual, modes, escape) of [C, H, W] each
+    -> uint8 [B, C, H, W] on `device`, all B * C planes decoded in one
+    call."""
+    b, (c, h, w) = len(sections), sections[0][0].shape
+    res, modes, esc = (torch.from_numpy(np.concatenate(x)).to(device)
+                       for x in zip(*sections))
+    out = intra_codec.decode_intra_frame(
+        intra_codec.IntraFrame(res, modes, esc), backend)
+    return out.to(torch.uint8).reshape(b, c, h, w)
+
+
+def _intra_decode(gops, recs, layout: _Layout, qstep: int, device,
+                  backend) -> None:
+    """Phase 3 of the loader: the I planes of every intra-coded GOP, decoded
+    per plane shape in batches of GOP_CHUNK GOPs on `device`, one call per
+    plane group (K6 on a GPU: a batch takes one launch at 4:4:4, one for
+    its luma and one for its chroma planes at 4:2:0)."""
+    for itype, members in _gop_groups(gops, recs):
+        if itype == 2:
+            pays = [intra_codec.IntraFrameLossy(*(
+                torch.from_numpy(np.stack([getattr(g, f) for g in members]))
+                .to(device) for f in group.payload))
+                for group in layout.groups]
+            outs = [intra_codec.decode_intra_frames_lossy_batch(
+                pay, qstep, backend) for pay in pays]
+        else:
+            outs = [_decode_lossless([g.iless[k] for g in members], device,
+                                     backend)
+                    for k in range(len(layout.groups))]
+        for group, out in zip(layout.groups, outs):
+            for g, planes in zip(members, _to_host(out)):
+                setattr(g, group.i, planes[0] if group.bare else planes)
+
+
+def _load_gops(fh, cfg: CodecConfig, n_gops: int, version: int, device,
+               backend) -> list:
+    """The GOP sections of a stream, in three phases: a sequential scan,
+    the entropy decode per GOP on a thread pool (the C decoder releases the
+    GIL), then the I planes of all GOPs, batched per plane shape."""
+    layout = _layout(cfg)
+    recs = [_scan_gop(fh, layout, version, cfg.intra_i)
+            for _ in range(n_gops)]
+    gops = _parallel_gop_builds(
+        recs, lambda r: _build_gop(r, layout, cfg, version))
+    with trace_annotation("load_vcs.intra"):
+        _intra_decode(gops, recs, layout, cfg.intra_qstep, device, backend)
+    return gops
 
 
 def _tensor(v: np.ndarray) -> torch.Tensor:
@@ -1850,107 +1790,7 @@ def load_vcs(path: str, *, device="cuda",
                           # BGR->YCrCb roundtrip; the signed-RCT residual
                           # transform arrived with v4
                           signed_residual=(version >= 4))
-        if chroma_420:
-            gops = _load_vcs_420(fh, cfg, n_gops, bs, version, device,
-                                 backend)
-            return EncodedVideo(
-                config=cfg, height=h, width=w, fps=fps,
-                num_frames=num_frames, gops=[_tensors(g) for g in gops])
-        _, dec = _stream_codecs(version)
-        _, dec_co = _coeff_codecs(version, bs)
-        _, dec_mv = _mv_codecs(version)
-
-        # phase 1: sequential scan of struct fields + raw blobs
-        recs = []
-        for _ in range(n_gops):
-            r = {}
-            c, ih, iw = struct.unpack("<III", fh.read(12))
-            if not (1 <= c <= 4 and 1 <= ih <= 16384 and 1 <= iw <= 16384):
-                raise ValueError(
-                    f".vcs: implausible I-frame shape ({c},{ih},{iw})")
-            r["shape"] = (c, ih, iw)
-            if version >= 5:
-                (itype,) = struct.unpack("<B", fh.read(1))
-            else:
-                itype = 1 if intra_i else 0
-            r["itype"] = itype
-            if itype == 2:
-                r["ipay"] = _scan_intra_payload(fh)
-            elif itype == 1:
-                rl, ml, el = struct.unpack("<QQQ", fh.read(24))
-                r["iless"] = (fh.read(rl), fh.read(ml), fh.read(el))
-            else:
-                r["iraw"] = fh.read(c * ih * iw)
-            (r["n_p"],) = struct.unpack("<I", fh.read(4))
-            (mv_len,) = struct.unpack("<Q", fh.read(8))
-            r["mv"] = fh.read(mv_len)
-
-            def blob():
-                (blob_len,) = struct.unpack("<Q", fh.read(8))
-                return fh.read(blob_len) if blob_len else None
-
-            r["res"] = blob()
-            r["n_b"] = 0
-            if version >= 4:
-                (r["n_b"],) = struct.unpack("<I", fh.read(4))
-                if r["n_b"]:
-                    bl, ml = struct.unpack("<QQ", fh.read(16))
-                    r["b_mv"] = fh.read(bl)
-                    r["b_mode"] = fh.read(ml)
-                    r["b_res"] = blob()
-            recs.append(r)
-
-        # phase 2: per-GOP entropy decode on a thread pool; the I-frames of
-        # intra sections wait for phase 3
-        def build(r):
-            c, ih, iw = r["shape"]
-            itype, n_p, n_b = r["itype"], r["n_p"], r["n_b"]
-            nbh, nbw = ih // bs, iw // bs
-            iq = imodes = iesc = i_frame = iless = None
-            if itype == 2:
-                iq, imodes, iesc = _decode_intra_payload(
-                    r["ipay"], (c, ih, iw), version)
-            elif itype == 1:
-                res_b, mode_b, esc_b = r["iless"]
-                res = dec(res_b, c * ih * iw).reshape(c, ih, iw)
-                modes = _decode_modes(mode_b, (c, ih // 4, iw // 4),
-                                      9, version)
-                esc = dec(esc_b, c * (ih // 4) * (iw // 4))
-                esc = esc.reshape(c, ih // 4, iw // 4).astype(bool)
-                iless = (res, modes, esc)
-            else:
-                i_frame = np.frombuffer(r["iraw"], np.uint8)
-                i_frame = i_frame.reshape(c, ih, iw)
-            mv = dec_mv(r["mv"], n_p * nbh * nbw * 2)
-            mv = mv.reshape(n_p, nbh, nbw, 2).astype(np.int32)
-
-            def read_res(blobv, n_f):
-                if blobv is None:
-                    return None
-                if mode == 2:
-                    return dec_co(blobv, (n_f, c, ih, iw))
-                flat = dec(blobv, n_f * c * ih * iw).astype(np.int32)
-                return (flat & 255).astype(np.uint8).reshape(n_f, c, ih, iw)
-
-            res = read_res(r["res"], n_p)
-            b_mv = b_mode = b_res = None
-            if n_b:
-                b_mv = dec_mv(r["b_mv"], n_b * 2 * nbh * nbw * 2)
-                b_mv = b_mv.reshape(n_b, 2, nbh, nbw, 2).astype(np.int32)
-                b_mode = _decode_modes(r["b_mode"], (n_b, nbh, nbw), 3,
-                                       version)
-                b_res = read_res(r["b_res"], n_b)
-            gop = EncodedGOP(i_frame=i_frame, mv=mv, residuals=res,
-                             b_mv=b_mv, b_mode=b_mode,
-                             b_residuals=b_res, i_qcoef=iq,
-                             i_modes=imodes, i_escape=iesc)
-            gop.iless = iless
-            return gop
-
-        gops = _parallel_gop_builds(recs, build)
-    # phase 3: the I-frames of all GOPs, batched per shape
-    with trace_annotation("load_vcs.intra"):
-        _intra_decode_fullres(gops, recs, intra_qstep, device, backend)
+        gops = _load_gops(fh, cfg, n_gops, version, device, backend)
     return EncodedVideo(config=cfg, height=h, width=w, fps=fps,
                         num_frames=num_frames,
                         gops=[_tensors(g) for g in gops])

@@ -21,11 +21,12 @@ buffers and copied on an upload stream, so that the upload of one batch
 overlaps the coding of the one before. Encoded GOPs stay on the device.
 
 Per-GOP checkpoints: with `checkpoint_dir`, every encoded GOP is written as
-`gop_{index:06d}.npz` as soon as it is coded, and a GOP already there is
-loaded instead of encoded, unless it was written under another
-configuration (`_cfg_fingerprint`), when it is encoded again. The files are
-key for key and dtype for dtype the JAX package's, and the fingerprint the
-same string, so each package resumes the other's directory. A loaded GOP
+`gop_{index:06d}.npz` (`models.gop.save_gop_npz`) as soon as it is coded,
+and a GOP already there is loaded instead of encoded, unless it was written
+under another configuration (`_cfg_fingerprint`), when it is encoded
+again. The files are key for key and dtype for dtype the JAX package's, and
+the fingerprint the same string, so each package resumes the other's
+directory. A loaded GOP
 holds host tensors, an encoded one device tensors; the decoder and both
 containers take either.
 
@@ -52,8 +53,9 @@ import torch
 from vcs_h264_tpu_torch.config import CodecConfig
 from vcs_h264_tpu_torch.io.video import group_into_gops
 from vcs_h264_tpu_torch.models import intra_codec, pipeline, pipeline420
-from vcs_h264_tpu_torch.models.gop import (NPZ_420, EncodedGOP,
-                                            EncodedGOP420, EncodedVideo)
+from vcs_h264_tpu_torch.models.gop import (EncodedGOP, EncodedGOP420,
+                                            EncodedVideo, load_gop_npz,
+                                            save_gop_npz)
 from vcs_h264_tpu_torch.models.host_path import HostPath
 from vcs_h264_tpu_torch.ops.motion import check_backend
 from vcs_h264_tpu_torch.utils.profiling import StageTimer, trace_annotation
@@ -87,97 +89,6 @@ def _cfg_fingerprint(cfg: CodecConfig) -> str:
         with_residual=cfg.with_residual, quant_mode=cfg.quant_mode,
         intra_i=cfg.intra_i, intra_qstep=cfg.intra_qstep,
         chroma_420=cfg.chroma_420), sort_keys=True)
-
-
-def _np(t: torch.Tensor, dtype) -> np.ndarray:
-    return t.cpu().numpy().astype(dtype, copy=False)
-
-
-def _save_gop_npz(path: str, gop: EncodedGOP, with_dct: bool,
-                  fingerprint: str = "") -> None:
-    """One GOP as the JAX package writes it: `i` uint8, `mv` int16, `cfg`,
-    `res` (uint8 wrap residuals without a DCT, else in the mode's dtype),
-    with B-frames `bmv` int16, `bmode` int8 and `bres`, and with lossy intra
-    `iq` int16, `imodes` int8 and `iesc` bool."""
-    def as_res(res):
-        if res is None:
-            return None
-        res = res.cpu().numpy()
-        return res.astype(np.uint8) if not with_dct else res
-
-    arrays = dict(i=_np(gop.i_frame, np.uint8), mv=_np(gop.mv, np.int16),
-                  cfg=np.array([fingerprint]))
-    res = as_res(gop.residuals)
-    if res is not None:
-        arrays["res"] = res
-    if gop.b_mv is not None:
-        arrays["bmv"] = _np(gop.b_mv, np.int16)
-        arrays["bmode"] = _np(gop.b_mode, np.int8)
-        bres = as_res(gop.b_residuals)
-        if bres is not None:
-            arrays["bres"] = bres
-    if gop.i_qcoef is not None:
-        arrays["iq"] = _np(gop.i_qcoef, np.int16)
-        arrays["imodes"] = _np(gop.i_modes, np.int8)
-        arrays["iesc"] = _np(gop.i_escape, bool)
-    np.savez_compressed(path, **arrays)
-
-
-def _save_gop_npz_420(path: str, gop: EncodedGOP420,
-                      fingerprint: str = "") -> None:
-    """One 4:2:0 GOP as the JAX package writes it: `y`, `c`, `mv`, `cfg`,
-    then each field present under its `.npz` key and stored dtype
-    (`models.gop.NPZ_420`)."""
-    arrays = dict(y=_np(gop.i_y, np.uint8), c=_np(gop.i_c, np.uint8),
-                  mv=_np(gop.mv, np.int16), cfg=np.array([fingerprint]))
-    for name, (key, stored, _) in NPZ_420.items():
-        v = getattr(gop, name)
-        if v is not None and key not in arrays:
-            arrays[key] = _np(v, stored)
-    np.savez_compressed(path, **arrays)
-
-
-def _stored_fingerprint(data) -> Optional[str]:
-    return str(data["cfg"][0]) if "cfg" in data.files else None
-
-
-def _load_gop_npz(path: str, fingerprint: str = "") -> Optional[EncodedGOP]:
-    """A checkpointed GOP as host tensors in `EncodedVideo.load_npz`'s
-    dtypes, or None when it was written under another fingerprint."""
-    with np.load(path) as data:
-        if fingerprint and _stored_fingerprint(data) != fingerprint:
-            return None
-
-        def opt(key, dtype=None):
-            if key not in data.files:
-                return None
-            v = data[key]
-            return torch.from_numpy(v if dtype is None else v.astype(dtype))
-
-        gop = EncodedGOP(i_frame=opt("i", np.uint8), mv=opt("mv", np.int32),
-                         residuals=opt("res"))
-        if "bmv" in data.files:
-            gop = dataclasses.replace(
-                gop, b_mv=opt("bmv", np.int32), b_mode=opt("bmode", np.int8),
-                b_residuals=opt("bres"))
-        if "iq" in data.files:
-            gop = dataclasses.replace(
-                gop, i_qcoef=opt("iq", np.int16),
-                i_modes=opt("imodes", np.int8), i_escape=opt("iesc", bool))
-        return gop
-
-
-def _load_gop_npz_420(path: str, fingerprint: str = ""
-                      ) -> Optional[EncodedGOP420]:
-    """A checkpointed 4:2:0 GOP as host tensors in `EncodedVideo.load_npz`'s
-    dtypes, or None when it was written under another fingerprint."""
-    with np.load(path) as data:
-        if fingerprint and _stored_fingerprint(data) != fingerprint:
-            return None
-        return EncodedGOP420(**{
-            name: (torch.from_numpy(data[key].astype(mem))
-                   if key in data.files else None)
-            for name, (key, _, mem) in NPZ_420.items()})
 
 
 class Encoder:
@@ -293,12 +204,11 @@ class Encoder:
                 if checkpoint_dir else None)
 
         fingerprint = _cfg_fingerprint(cfg)
-        load_ckpt = _load_gop_npz_420 if cfg.chroma_420 else _load_gop_npz
         encoded: List = [None] * len(grouped)
         pending = []
         for idx in range(len(grouped)):
             path = ckpt_path(idx)
-            gop = (load_ckpt(path, fingerprint)
+            gop = (load_gop_npz(path, cfg, fingerprint)
                    if path and os.path.exists(path) else None)
             if gop is not None:
                 encoded[idx] = gop
@@ -330,8 +240,7 @@ class Encoder:
             self._log_gop(idx, gop)
             if ckpt_path(idx):
                 with self._stage("checkpoint_write"):
-                    _save_gop_npz(ckpt_path(idx), gop, cfg.with_dct,
-                                  fingerprint)
+                    save_gop_npz(ckpt_path(idx), gop, cfg, fingerprint)
 
         for idxs in self._batches(full):
             i_b, p_b = self._upload_batch(grouped, idxs)
@@ -371,7 +280,7 @@ class Encoder:
             encoded[idx] = gop
             self._log_gop(idx, gop)
             if ckpt_path(idx):
-                _save_gop_npz_420(ckpt_path(idx), gop, fingerprint)
+                save_gop_npz(ckpt_path(idx), gop, cfg, fingerprint)
 
         for idxs in self._batches(full):
             i_b, p_b = self._upload_batch(grouped, idxs)

@@ -19,6 +19,12 @@ with B-frames `gop{g}_bmv`, `gop{g}_bmode`, `gop{g}_bresy` and
 (`gop{g}_iqy` int16 [1, H, W], `_imy` int8, `_iey` bool [1, H/4, W/4]) and
 of the chroma planes (`gop{g}_iqc` [2, H/2, W/2], `_imc`, `_iec`
 [2, H/8, W/8]).
+
+`npz_fields(cfg)` holds either layout as a table (field -> key, stored
+dtype, dtype in memory); `gop_to_npz` / `gop_from_npz` turn one GOP into
+those arrays and back, under the prefix `gop{g}_` in a stream's file and
+under none in a checkpoint file (`save_gop_npz` / `load_gop_npz`), which
+adds the configuration's fingerprint as `cfg`.
 """
 
 from __future__ import annotations
@@ -193,6 +199,66 @@ NPZ_420 = dict(
     bres_c=("bresc", np.int16, np.int16))
 
 
+def npz_fields(cfg: CodecConfig) -> dict:
+    """The GOP record's fields under `cfg` -> (.npz key suffix, stored
+    dtype, dtype in memory), both as the JAX package has them: `NPZ_420`
+    under chroma_420, else the 4:4:4 record's, its residuals in
+    `residual_dtype(cfg)`."""
+    if cfg.chroma_420:
+        return NPZ_420
+    res = residual_dtype(cfg)
+    return dict(
+        i_frame=("i", np.uint8, np.uint8), mv=("mv", np.int16, np.int32),
+        residuals=("res", res, res), b_mv=("bmv", np.int16, np.int32),
+        b_mode=("bmode", np.int8, np.int8), b_residuals=("bres", res, res),
+        i_qcoef=("iq", np.int16, np.int16),
+        i_modes=("imodes", np.int8, np.int8), i_escape=("iesc", bool, bool))
+
+
+# the fields every file holds: the I planes and the vectors
+_NPZ_REQUIRED = ("i_frame", "i_y", "i_c", "mv")
+
+
+def gop_to_npz(gop, cfg: CodecConfig, prefix: str = "") -> dict:
+    """A GOP's fields that are not None -> {prefix + key: numpy array in
+    the stored dtype}."""
+    return {prefix + key: v.cpu().numpy().astype(stored, copy=False)
+            for name, (key, stored, _) in npz_fields(cfg).items()
+            if (v := getattr(gop, name)) is not None}
+
+
+def gop_from_npz(data, cfg: CodecConfig, prefix: str = ""):
+    """The inverse of `gop_to_npz` on an open `.npz`: the record of CPU
+    tensors in the dtypes in memory, None where a field is absent. A file
+    without the I planes or the vectors raises KeyError."""
+    def one(name, key, mem):
+        if name not in _NPZ_REQUIRED and prefix + key not in data.files:
+            return None
+        return torch.from_numpy(data[prefix + key].astype(mem))
+
+    record = EncodedGOP420 if cfg.chroma_420 else EncodedGOP
+    return record(**{name: one(name, key, mem)
+                     for name, (key, _, mem) in npz_fields(cfg).items()})
+
+
+def save_gop_npz(path: str, gop, cfg: CodecConfig,
+                 fingerprint: str = "") -> None:
+    """One GOP as a checkpoint file, as the JAX package writes it: its
+    fields under their keys, and `cfg` the configuration's fingerprint."""
+    np.savez_compressed(path, cfg=np.array([fingerprint]),
+                        **gop_to_npz(gop, cfg))
+
+
+def load_gop_npz(path: str, cfg: CodecConfig, fingerprint: str = ""):
+    """A checkpointed GOP as host tensors in `EncodedVideo.load_npz`'s
+    dtypes, or None when it was written under another fingerprint."""
+    with np.load(path) as data:
+        stored = str(data["cfg"][0]) if "cfg" in data.files else None
+        if fingerprint and stored != fingerprint:
+            return None
+        return gop_from_npz(data, cfg)
+
+
 @dataclasses.dataclass
 class EncodedVideo:
     """A sequence of encoded GOPs plus stream metadata."""
@@ -205,34 +271,8 @@ class EncodedVideo:
 
     def save_npz(self, path: str) -> None:
         arrays = {}
-        if self.config.chroma_420:
-            for g, gop in enumerate(self.gops):
-                for name, (key, stored, _) in NPZ_420.items():
-                    v = getattr(gop, name)
-                    if v is not None:
-                        arrays[f"gop{g}_{key}"] = v.cpu().numpy().astype(
-                            stored, copy=False)
-            np.savez_compressed(path, _meta=np.array([json.dumps(
-                self._meta_dict())]), **arrays)
-            return
-        res_dt = residual_dtype(self.config)
-
-        def put(key, v, dtype):
-            if v is not None:
-                arrays[key] = v.cpu().numpy().astype(dtype, copy=False)
-
         for g, gop in enumerate(self.gops):
-            arrays[f"gop{g}_i"] = gop.i_frame.cpu().numpy().astype(np.uint8)
-            arrays[f"gop{g}_mv"] = gop.mv.cpu().numpy().astype(np.int16)
-            put(f"gop{g}_res", gop.residuals, res_dt)
-            if gop.b_mv is not None:
-                put(f"gop{g}_bmv", gop.b_mv, np.int16)
-                put(f"gop{g}_bmode", gop.b_mode, np.int8)
-                put(f"gop{g}_bres", gop.b_residuals, res_dt)
-            if gop.i_qcoef is not None:
-                arrays[f"gop{g}_iq"] = gop.i_qcoef.cpu().numpy().astype(np.int16)
-                arrays[f"gop{g}_imodes"] = gop.i_modes.cpu().numpy().astype(np.int8)
-                arrays[f"gop{g}_iesc"] = gop.i_escape.cpu().numpy().astype(bool)
+            arrays.update(gop_to_npz(gop, self.config, f"gop{g}_"))
         np.savez_compressed(path, _meta=np.array([json.dumps(
             self._meta_dict())]), **arrays)
 
@@ -271,38 +311,7 @@ class EncodedVideo:
                 intra_i=bool(meta.get("intra_i", 0)),
                 intra_qstep=int(meta.get("intra_qstep", 0)),
                 chroma_420=bool(meta.get("chroma_420", 0)))
-            head = (cfg, int(meta["height"]), int(meta["width"]),
-                    float(meta["fps"]), int(meta["num_frames"]))
-            if cfg.chroma_420:
-                return cls(*head, [EncodedGOP420(**{
-                    name: (torch.from_numpy(data[f"gop{g}_{key}"].astype(mem))
-                           if f"gop{g}_{key}" in data.files else None)
-                    for name, (key, _, mem) in NPZ_420.items()})
-                    for g in range(int(meta["num_gops"]))])
-
-            res_dt = residual_dtype(cfg)
-
-            def arr(key, dtype):
-                return torch.from_numpy(data[key].astype(dtype))
-
-            def opt(key, dtype):
-                return arr(key, dtype) if key in data.files else None
-
-            gops = []
-            for g in range(int(meta["num_gops"])):
-                key = f"gop{g}_"
-                gop = EncodedGOP(
-                    arr(key + "i", np.uint8), arr(key + "mv", np.int32),
-                    opt(key + "res", res_dt))
-                if key + "bmv" in data.files:
-                    gop = dataclasses.replace(
-                        gop, b_mv=arr(key + "bmv", np.int32),
-                        b_mode=arr(key + "bmode", np.int8),
-                        b_residuals=opt(key + "bres", res_dt))
-                if key + "iq" in data.files:
-                    gop = dataclasses.replace(
-                        gop, i_qcoef=arr(key + "iq", np.int16),
-                        i_modes=arr(key + "imodes", np.int8),
-                        i_escape=arr(key + "iesc", bool))
-                gops.append(gop)
-        return cls(*head, gops)
+            return cls(cfg, int(meta["height"]), int(meta["width"]),
+                       float(meta["fps"]), int(meta["num_frames"]),
+                       [gop_from_npz(data, cfg, f"gop{g}_")
+                        for g in range(int(meta["num_gops"]))])

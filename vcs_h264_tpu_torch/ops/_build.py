@@ -96,12 +96,37 @@ def _sources():
     return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
 
 
-def library_path() -> Path:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
-        h.update(src.name.encode())
+def library_file(prefix: str, flags, sources) -> Path:
+    """BUILD/<prefix>_<key>.so, the key a hash of the flags and the sources:
+    each source's name and bytes, or the bytes alone of a single source."""
+    h = hashlib.sha256(" ".join(flags).encode())
+    for src in sources:
+        if len(sources) > 1:
+            h.update(src.name.encode())
         h.update(src.read_bytes())
-    return BUILD / f"libvcs_kernels_{h.hexdigest()[:16]}.so"
+    return BUILD / f"{prefix}_{h.hexdigest()[:16]}.so"
+
+
+def cached_library(prefix: str, flags, sources, build) -> Path:
+    """The library of `sources` built with `flags`, at `library_file`.
+    Where it is not yet, `build(tmp)` writes it into a file of this process
+    and thread, which is then renamed into place: processes that build at
+    once never load a partial library."""
+    out = library_file(prefix, flags, sources)
+    if out.exists():
+        return out
+    out.parent.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
+    try:
+        build(tmp)
+        os.replace(tmp, out)
+    finally:
+        tmp.unlink(missing_ok=True)
+    return out
+
+
+def library_path() -> Path:
+    return library_file("libvcs_kernels", NVCC_FLAGS, _sources())
 
 
 def _run_all(cmds) -> None:
@@ -120,11 +145,11 @@ def _run_all(cmds) -> None:
 
 
 def _compile(out: Path) -> None:
+    """Each .cu source into an object by its own nvcc, all at once, then
+    one link into `out`."""
     global build_seconds
     nvcc = find_nvcc()
-    BUILD.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    objdir = BUILD / f"obj.{os.getpid()}"
+    objdir = out.with_suffix(".obj")
     objdir.mkdir(exist_ok=True)
     srcs = sorted(CSRC.glob("*.cu"))
     objs = [objdir / f"{s.stem}.o" for s in srcs]
@@ -132,14 +157,10 @@ def _compile(out: Path) -> None:
     try:
         _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(s)]
                   for s, o in zip(srcs, objs)])
-        _run_all([[nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp),
+        _run_all([[nvcc, *ARCH_FLAGS, "-shared", "-o", str(out),
                    *map(str, objs)]])
-    except RuntimeError:
-        tmp.unlink(missing_ok=True)
-        raise
     finally:
         shutil.rmtree(objdir, ignore_errors=True)
-    os.replace(tmp, out)        # atomic: no process loads a partial file
     build_seconds = time.perf_counter() - t0
 
 
@@ -148,10 +169,8 @@ def load_library() -> ctypes.CDLL:
     global _lib
     with _lock:
         if _lib is None:
-            out = library_path()
-            if not out.exists():
-                _compile(out)
-            lib = ctypes.CDLL(str(out))
+            lib = ctypes.CDLL(str(cached_library(
+                "libvcs_kernels", NVCC_FLAGS, _sources(), _compile)))
             for name, argtypes in SIGNATURES.items():
                 fn = getattr(lib, name)
                 fn.argtypes = list(argtypes)
